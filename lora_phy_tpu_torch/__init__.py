@@ -1,0 +1,73 @@
+"""lora_phy_tpu_torch — the LoRa PHY framework on PyTorch and CUDA.
+
+A port of :mod:`lora_phy_tpu` (the JAX reference, which stays beside it)
+to PyTorch, with the one Pallas kernel of the JAX package rewritten by
+hand in CUDA C++ for Hopper (``csrc/fused_demod.cu``). Every function
+mirrors its JAX twin file for file:
+
+  ops/coding.py       Hamming 8/4, Gray, nibbles, SX1272 CRC16
+  ops/chirp.py        integer-lattice chirp emitter (table gather / trig)
+  ops/fft.py          four-step DFT factor tables
+  ops/planar.py       planar (re, im) TX, dechirp and demodulation
+  ops/fused_demod.py  the fused derotate + DFT + argmax kernel and its
+                      plain PyTorch twin
+  models/modem.py     encode / decode and the complex-input API
+
+Functions take tensors and compute on the device those tensors live on;
+functions that create a tensor from nothing take an explicit ``device=``.
+``LoraParams`` is the JAX package's own class (its ``utils.params``
+module imports no JAX), so one params object drives both packages.
+
+The parity contract is float32 on every device, so TF32 is switched off
+here, once, at import.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from lora_phy_tpu.utils.params import (  # noqa: F401
+    Bandwidth,
+    LoraMetrics,
+    LoraParams,
+    Window,
+    bw_scale,
+)
+
+__version__ = "0.1.0"
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def device_of(x=None, device=None) -> torch.device:
+    """The device to compute on: ``device`` when given, else the device of
+    the tensor ``x``. Raises rather than picking a device silently."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    raise ValueError("no device: pass a tensor or an explicit device=")
+
+
+def device_table(builder, *args, device) -> object:
+    """``builder(*args)`` (a NumPy table builder) with every ndarray in its
+    result moved to ``device`` once and cached, so the constant tables are
+    built by the same NumPy code as the JAX package's and uploaded once."""
+    return _device_table(builder, args, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(builder, args, device):
+    def put(a):
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return a
+
+    out = builder(*args)
+    if isinstance(out, tuple):
+        return tuple(put(a) for a in out)
+    return put(out)

@@ -1,0 +1,159 @@
+"""Fused dechirp-detection stage: per-row CFO derotation, N-point DFT,
+|.|² and first-max argmax in one kernel — the counterpart of
+``lora_phy_tpu/ops/pallas_demod.py`` (its Pallas ``_kernel``).
+
+On a CUDA tensor :func:`fused_detect_rows` launches the hand-written
+CUDA C++ kernel ``csrc/fused_demod.cu`` (built for sm_90a at first use,
+see :mod:`.._build`); on a CPU tensor it runs the plain PyTorch twin
+:func:`fused_detect_rows_reference`, which computes the same function
+in torch ops. There is no other route: a CUDA call either launches the
+kernel or raises.
+
+Rows are symbol windows (batch x frames x symbols flattened), one bin
+per row. Ties go to the lowest bin, as the Pallas kernel's
+``min(where(mag == rowmax, col, N))`` and the reference's strict ``>``
+scan (LoRaDetector.hpp:52-57).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import LoraParams, device_table
+from ..models.modem import _window_table
+
+# Launches of the CUDA kernel in this process: one per call of
+# fused_detect_rows on CUDA tensors, so a run can show that its main
+# path went through the kernel.
+LAUNCHES = 0
+
+# N values the CUDA kernel is instantiated for (SF5-7)
+CUDA_N = (32, 64, 128)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_tables(n: int, window_key):
+    """[N, N] cos / -sin DFT tables with the window folded into the rows
+    (a copy of the JAX module's builder)."""
+    k = np.arange(n)
+    ang = 2.0 * np.pi * np.outer(k, k) / n
+    wr = np.cos(ang).astype(np.float32)
+    wi = (-np.sin(ang)).astype(np.float32)
+    if window_key is not None:
+        w = np.asarray(window_key, dtype=np.float32)
+        wr = wr * w[:, None]
+        wi = wi * w[:, None]
+    return wr, wi
+
+
+def _tables(params: LoraParams, device):
+    window = _window_table(params)
+    key = tuple(window) if window is not None else None
+    return device_table(_dft_tables, params.n, key, device=device)
+
+
+def reference_power(xr: torch.Tensor, xi: torch.Tensor, start: torch.Tensor,
+                    rate_rows: torch.Tensor, params: LoraParams) -> torch.Tensor:
+    """[B, N] |DFT(window * x * exp(j*(start + rate*col)))|², in torch ops."""
+    wr, wi = _tables(params, xr.device)
+    col = torch.arange(params.n, dtype=torch.float32, device=xr.device)
+    ph = start[:, None] + rate_rows[:, None] * col
+    c, s = torch.cos(ph), torch.sin(ph)
+    fr = xr * c - xi * s
+    fi = xr * s + xi * c
+    zr = fr @ wr - fi @ wi
+    zi = fr @ wi + fi @ wr
+    return zr * zr + zi * zi
+
+
+def fused_detect_rows_reference(xr: torch.Tensor, xi: torch.Tensor,
+                                start: torch.Tensor, rate_rows: torch.Tensor,
+                                params: LoraParams) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: [B, N] planar rows -> [B] int32
+    first-max bins of :func:`reference_power` (``torch.argmax`` returns
+    the first maximum)."""
+    mag = reference_power(xr, xi, start, rate_rows, params)
+    return torch.argmax(mag, dim=-1).to(torch.int32)
+
+
+def _check_rows(xr, xi, start, rate_rows, n):
+    b = xr.shape[0]
+    for name, t, shape in (("xr", xr, (b, n)), ("xi", xi, (b, n)),
+                           ("start", start, (b,)), ("rate_rows", rate_rows, (b,))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.device != xr.device:
+            raise ValueError(f"{name} is on {t.device}, xr on {xr.device}")
+
+
+def fused_detect_rows(xr: torch.Tensor, xi: torch.Tensor, start: torch.Tensor,
+                      rate_rows: torch.Tensor, params: LoraParams) -> torch.Tensor:
+    """Fused detection over [B, N] planar rows with per-row derotation
+    phase ``start`` and per-sample ``rate_rows`` ([B] each). Returns [B]
+    int32 argmax bins. N <= 128; the CUDA kernel takes N in 32/64/128."""
+    global LAUNCHES
+    n = params.n
+    if n > 128:
+        raise ValueError("fused kernel supports N <= 128; use the planar path")
+    if xr.dim() != 2:
+        raise ValueError(f"xr must be [B, N], got shape {tuple(xr.shape)}")
+    _check_rows(xr, xi, start, rate_rows, n)
+    if xr.device.type == "cpu":
+        return fused_detect_rows_reference(xr, xi, start, rate_rows, params)
+    if xr.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {xr.device}")
+    if n not in CUDA_N:
+        raise ValueError(f"the CUDA kernel is built for N in {CUDA_N}, got {n}")
+    for name, t in (("xr", xr), ("xi", xi), ("start", start),
+                    ("rate_rows", rate_rows)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    from .._build import load_library
+
+    lib = load_library()
+    wr, wi = _tables(params, xr.device)
+    out = torch.empty(xr.shape[0], dtype=torch.int32, device=xr.device)
+    with torch.cuda.device(xr.device):
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = lib.lora_fused_demod(
+            xr.data_ptr(), xi.data_ptr(), start.data_ptr(), rate_rows.data_ptr(),
+            wr.data_ptr(), wi.data_ptr(), out.data_ptr(),
+            ctypes.c_longlong(xr.shape[0]), ctypes.c_int(n), stream)
+    if rc != 0:
+        msg = lib.lora_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_demod kernel launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES += 1
+    return out
+
+
+def symbol_rows(yr: torch.Tensor, yi: torch.Tensor, rate: torch.Tensor,
+                t_off: torch.Tensor, params: LoraParams):
+    """[..., S, N] symbol windows -> the kernel's contiguous operands:
+    [B, N] rows and [B] ``start`` / ``rate_rows``, with the per-symbol
+    phase ``start = rate*(s*N + t_off/osr)`` as in the JAX twin."""
+    n, osr = params.n, params.osr
+    s_count = yr.shape[-2]
+    s_idx = torch.arange(s_count, dtype=torch.float32, device=yr.device) * float(n)
+    start = rate[..., None] * (
+        s_idx + t_off.to(torch.float32)[..., None] / float(osr)
+    )                                                      # [..., S]
+    rate_rows = torch.broadcast_to(rate[..., None], start.shape)
+    return (yr.reshape(-1, n).contiguous(), yi.reshape(-1, n).contiguous(),
+            start.reshape(-1).contiguous(), rate_rows.reshape(-1).contiguous())
+
+
+def fused_demod(yr: torch.Tensor, yi: torch.Tensor, rate: torch.Tensor,
+                t_off: torch.Tensor, params: LoraParams) -> torch.Tensor:
+    """Fused per-symbol stage for demodulate_planar.
+
+    ``yr, yi``: [..., S, N] gathered symbol windows; ``rate``: [...] f32;
+    ``t_off``: [...] int. Returns [..., S] int32 bins."""
+    bins = fused_detect_rows(*symbol_rows(yr, yi, rate, t_off, params), params)
+    return bins.reshape(yr.shape[:-1])

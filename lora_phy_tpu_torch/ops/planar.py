@@ -1,0 +1,432 @@
+"""Planar-complex (split re/im float32) modulation, dechirp and
+demodulation — the PyTorch twin of ``lora_phy_tpu/ops/planar.py`` (main
+path).
+
+Same estimator, tie-breaks and rounding as the JAX module (and so as the
+reference, src/phy/LoRaDemod.cpp:49-195), computed in float32 on
+(re, im) planes with the DFT as real matmuls (four-step for N > 128).
+``demodulate_planar(fused=True)`` sends the per-symbol stage at N <= 128
+through the hand-written CUDA kernel of :mod:`.fused_demod`.
+
+Not ported: the JAX module's bf16 decision path (``_decision_bins_bf16``,
+chosen there on any non-CPU backend) — the port stays float32 on every
+device — and the ``mxu_dtype`` knobs that feed it.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import LoraParams, device_table
+from ..models.modem import (_round_half_away, _shifted_symbol_gather,
+                            _sync_from_symbols, _window_table)
+from .fft import _dft_mats
+
+_TWO_PI = 2.0 * math.pi
+_TWO_PI_F32 = float(np.float32(_TWO_PI))
+
+
+class PlanarDemodResult(NamedTuple):
+    symbols: torch.Tensor       # [..., S] int32 data symbols
+    sync_word: torch.Tensor     # [...] uint8
+    cfo: torch.Tensor           # [...] float32
+    time_offset: torch.Tensor   # [...] float32
+
+
+class PlanarDetection(NamedTuple):
+    index: torch.Tensor
+    power: torch.Tensor       # fundamental power, dB (LoRaDetector.hpp:64)
+    power_avg: torch.Tensor   # residual/noise power, dB
+    findex: torch.Tensor
+    peak_re: torch.Tensor
+    peak_im: torch.Tensor
+
+
+def _window(params: LoraParams, device):
+    """The Hann window as a device tensor, or None."""
+    return device_table(_window_table, params, device=device)
+
+
+# ---------------------------------------------------------------------------
+# DFT tables (NumPy copies of the JAX builders)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _small_dft_tables(n: int):
+    k = np.arange(n)
+    ang = 2 * np.pi * np.outer(k, k) / n
+    return (np.cos(ang).astype(np.float32),
+            (-np.sin(ang)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _combined_dft_mat(n: int):
+    """[2n, 2n] float32 ``M`` with ``[xr | xi] @ M = [yr | yi]`` for the
+    Wr=cos / Wi=-sin DFT: ``M = [[Wr, Wi], [-Wi, Wr]]``."""
+    k = np.arange(n)
+    ang = 2 * np.pi * np.outer(k, k) / n
+    wr = np.cos(ang).astype(np.float32)
+    wi = (-np.sin(ang)).astype(np.float32)
+    return np.block([[wr, wi], [-wi, wr]])
+
+
+@functools.lru_cache(maxsize=16)
+def _combined_fourstep_mats(n: int):
+    """Combined-form four-step constants: ``M1R`` [2n1, 2n1] right-multiplies
+    concatenated [br | bi] columns; twiddles in the [k2, i1] layout."""
+    w1, w2, tw, n1, n2 = _dft_mats(n)
+    m1r = np.block([[w1.real.T, w1.imag.T],
+                    [-w1.imag.T, w1.real.T]]).astype(np.float32)
+    twr = np.ascontiguousarray(tw.T.real).astype(np.float32)
+    twi = np.ascontiguousarray(tw.T.imag).astype(np.float32)
+    return m1r, n1, n2, twr, twi
+
+
+def _fourstep_planar_mats(n: int):
+    """Split-form four-step planes for :func:`dft_planar`."""
+    w1, w2, tw, n1, n2 = _dft_mats(n)
+    return (w1.real.copy(), w1.imag.copy(), w2.real.copy(), w2.imag.copy(),
+            np.ascontiguousarray(tw.T.real), np.ascontiguousarray(tw.T.imag))
+
+
+def _scrambled_mats(n: int):
+    """Device-ready constants of :func:`_dft_mag2_scrambled`."""
+    m1r, n1, n2, twr_t, twi_t = _combined_fourstep_mats(n)
+    return (_combined_dft_mat(n2), m1r, twr_t.T.copy(), twi_t.T.copy(), n1, n2)
+
+
+# ---------------------------------------------------------------------------
+# DFT, |DFT|^2, argmax, detection
+# ---------------------------------------------------------------------------
+
+def dft_planar(xr: torch.Tensor, xi: torch.Tensor, n: int):
+    """Planar DFT over the last axis: four real matmuls (N <= 128) or the
+    four-step factorisation (N up to 4096)."""
+    if n <= 128:
+        wr, wi = device_table(_small_dft_tables, n, device=xr.device)
+        # one [rows, n] GEMM: a strided batch (the estimator's osr-phase
+        # view) would otherwise run as batched GEMVs on the GPU
+        shape = xr.shape
+        xr, xi = xr.reshape(-1, n), xi.reshape(-1, n)
+        return ((xr @ wr - xi @ wi).reshape(shape),
+                (xr @ wi + xi @ wr).reshape(shape))
+    w1r, w1i, w2r, w2i, twr, twi = device_table(_fourstep_planar_mats, n,
+                                                device=xr.device)
+    n1, n2 = _dft_mats(n)[3:]
+    lead = xr.shape[:-1]
+    xr_m = xr.reshape(*lead, n2, n1)                    # [.., i2, i1]
+    xi_m = xi.reshape(*lead, n2, n1)
+    ar = w2r @ xr_m - w2i @ xi_m                        # inner DFT: [.., k2, i1]
+    ai = w2r @ xi_m + w2i @ xr_m
+    br = ar * twr - ai * twi                            # twiddle
+    bi = ar * twi + ai * twr
+    cr = br @ w1r.T - bi @ w1i.T                        # outer DFT: [.., k2, k1]
+    ci = br @ w1i.T + bi @ w1r.T
+    return (cr.swapaxes(-1, -2).reshape(*lead, n),
+            ci.swapaxes(-1, -2).reshape(*lead, n))
+
+
+def _dft_mag2_scrambled(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+    """|DFT|² in the four-step's native [.., k2, k1] layout (bin
+    ``k = k1*n2 + k2``), via two combined matmuls and no output reorder."""
+    m2, m1r, twr, twi, n1, n2 = device_table(_scrambled_mats, n, device=xr.device)
+    lead = xr.shape[:-1]
+    xst = torch.cat(
+        [xr.reshape(*lead, n2, n1).swapaxes(-1, -2),
+         xi.reshape(*lead, n2, n1).swapaxes(-1, -2)], dim=-1
+    )                                                   # [.., n1, 2n2]
+    a = xst @ m2
+    ar, ai = a[..., :n2], a[..., n2:]                   # [.., n1, n2]
+    bs = torch.cat(
+        [(ar * twr - ai * twi).swapaxes(-1, -2),
+         (ar * twi + ai * twr).swapaxes(-1, -2)], dim=-1
+    )                                                   # [.., n2, 2n1]
+    c = bs @ m1r                                        # [cr | ci]
+    return c[..., :n1] * c[..., :n1] + c[..., n1:] * c[..., n1:]
+
+
+def dft_mag2_planar(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+    """|DFT|² over the last axis in natural bin order."""
+    if n <= 128:
+        m = device_table(_combined_dft_mat, n, device=xr.device)
+        y = torch.cat([xr, xi], dim=-1) @ m
+        return y[..., :n] * y[..., :n] + y[..., n:] * y[..., n:]
+    m = _dft_mag2_scrambled(xr, xi, n)
+    lead = m.shape[:-2]
+    return m.swapaxes(-1, -2).reshape(*lead, n)
+
+
+def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
+                       with_peak: bool = False):
+    """DFT + |.|² + first-max argmax only (int32 bins; ``with_peak`` also
+    returns the peak |.|²). At N > 128 ties go to the lowest natural bin,
+    as the reference's first-max scan (tests/equal_power_bin_test.cpp)."""
+    if n <= 128:
+        mag2 = dft_mag2_planar(xr, xi, n)
+        bins = torch.argmax(mag2, dim=-1).to(torch.int32)
+        if with_peak:
+            return bins, mag2.amax(dim=-1)
+        return bins
+    m = _dft_mag2_scrambled(xr, xi, n)
+    lead = m.shape[:-2]
+    n2, n1 = m.shape[-2], m.shape[-1]
+    bins, peak = _argmax_natural(m.reshape(*lead, n2 * n1), n1, n2)
+    if with_peak:
+        return bins, peak
+    return bins
+
+
+def _argmax_natural(flat: torch.Tensor, n1: int, n2: int):
+    """First-max argmax over a flattened scrambled [k2, k1] spectrum,
+    returning (lowest natural tied bin, peak value). The JAX twin carries
+    the natural index through a variadic reduce; here the spectrum is
+    reordered to natural order (bin ``k1*n2 + k2``) and ``torch.argmax``,
+    which returns the first maximum, picks the same bin."""
+    lead = flat.shape[:-1]
+    nat = flat.reshape(*lead, n2, n1).swapaxes(-1, -2).reshape(*lead, n1 * n2)
+    peak, bins = torch.max(nat, dim=-1)
+    return bins.to(torch.int32), peak
+
+
+def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int) -> PlanarDetection:
+    """Planar twin of ops.detect.detect (same argmax/tie-break/fIndex
+    semantics, LoRaDetector.hpp:39-74)."""
+    sr, si = dft_planar(xr, xi, n)
+    mag2 = sr * sr + si * si
+    index = torch.argmax(mag2, dim=-1)
+    max_value = mag2.amax(dim=-1)
+    fundamental = torch.sqrt(max_value)
+    scale_db = 20.0 * torch.log10(torch.tensor(n, dtype=torch.float32,
+                                               device=xr.device))
+    power = 20.0 * torch.log10(fundamental) - scale_db
+    total = mag2.sum(dim=-1)
+    noise = torch.sqrt(torch.clamp(total - max_value, min=0.0))
+    power_avg = 20.0 * torch.log10(noise) - scale_db
+
+    left_ix = torch.where(index > 0, index - 1, n - 1)[..., None]
+    right_ix = torch.where(index < n - 1, index + 1, 0)[..., None]
+    left = torch.sqrt(torch.gather(mag2, -1, left_ix)[..., 0])
+    right = torch.sqrt(torch.gather(mag2, -1, right_ix)[..., 0])
+    denom = 2.0 * fundamental - right - left
+    findex = torch.where(denom == 0.0, torch.zeros_like(denom),
+                         0.5 * (right - left) / denom)
+    peak_re = torch.gather(sr, -1, index[..., None])[..., 0]
+    peak_im = torch.gather(si, -1, index[..., None])[..., 0]
+    return PlanarDetection(index.to(torch.int32), power, power_avg, findex,
+                           peak_re, peak_im)
+
+
+def _estimate_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, osr: int,
+                     window, tie_break_idx: bool = True):
+    """Planar twin of modem._estimate: the 2-symbol CFO / timing estimate.
+    ``tie_break_idx=True`` applies ``lora_demodulate``'s lowest-index
+    tie-break across osr phases (src/phy/LoRaDemod.cpp:85-135)."""
+    lead = xr.shape[:-1]
+    s = xr.shape[-1] // (n * osr)
+
+    def view(a):
+        return a[..., : s * n * osr].reshape(*lead, s, n, osr).swapaxes(-1, -2)
+
+    vr, vi = view(xr), view(xi)
+    if window is not None:
+        vr, vi = vr * window, vi * window
+    det = detect_planar(vr, vi, n)
+    p, idx = det.power, det.index
+
+    maxp = p.amax(dim=-1, keepdim=True)
+    cand = p == maxp
+    if tie_break_idx:
+        idx_masked = torch.where(cand, idx, torch.iinfo(torch.int32).max)
+        min_idx = idx_masked.amin(dim=-1, keepdim=True)
+        cand = cand & (idx_masked == min_idx)
+    best_t = torch.argmax(cand.to(torch.int32), dim=-1)  # first winning phase
+
+    def pick(f):
+        return torch.gather(f, -1, best_t[..., None])[..., 0]
+
+    best_idx, best_fi = pick(idx), pick(det.findex)
+    pr, pi = pick(det.peak_re), pick(det.peak_im)
+
+    sum_index = torch.sum(best_idx.to(torch.float32) + best_fi, dim=-1)
+    avg_index = sum_index / float(s)
+    cfo_coarse = avg_index / float(n)
+
+    phase = torch.atan2(pi, pr)
+    if s > 1:
+        d = phase[..., 1:] - phase[..., :-1]
+        d = torch.where(d > math.pi, d - _TWO_PI, d)
+        d = torch.where(d < -math.pi, d + _TWO_PI, d)
+        cfo_fine = (torch.sum(d, dim=-1) / float(s - 1)) / float(
+            np.float32(_TWO_PI) * np.float32(n))
+    else:
+        cfo_fine = torch.zeros_like(cfo_coarse)
+    cfo = cfo_coarse + cfo_fine
+
+    frac = avg_index - torch.floor(avg_index + 0.5)
+    avg_t = torch.sum(best_t, dim=-1).to(torch.float32) / float(s)
+    time_offset = avg_t - frac * float(n) * float(osr)
+    return cfo, time_offset
+
+
+# ---------------------------------------------------------------------------
+# Demodulation
+# ---------------------------------------------------------------------------
+
+def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
+                      fused: bool = False, assume_normalized: bool = False,
+                      precision: str = "f32",
+                      known_offsets=None) -> PlanarDemodResult:
+    """Planar twin of models.modem.demodulate (the working dechirped-input
+    contract). ``xr, xi``: [..., S_total*step] float32.
+
+    ``fused=True`` routes the per-symbol stage (N <= 128) through
+    :func:`.fused_demod.fused_demod` — the CUDA kernel on a CUDA tensor,
+    its plain twin on a CPU tensor. ``assume_normalized=True`` skips the
+    [-1, 1] rescale scan. ``known_offsets=(cfo, time_offset)`` bypasses
+    the 2-symbol estimator. Only ``precision='f32'`` is ported."""
+    if precision == "bf16":
+        raise NotImplementedError(
+            "precision='bf16' is not ported (ROADMAP.md Queue 1: the "
+            "precision='bf16' path); the port runs float32")
+    if precision != "f32":
+        raise ValueError(f"unknown precision {precision!r}")
+    yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
+        xr, xi, params, assume_normalized, known_offsets
+    )
+
+    if fused:
+        if scale is not None:
+            yr = yr * scale[..., None, None]
+            yi = yi * scale[..., None, None]
+        from .fused_demod import fused_demod
+        syms = fused_demod(yr, yi, rate, t_off, params)
+    else:
+        fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
+        syms = argmax_bins_planar(fr, fi, params.n)
+
+    sync = _sync_from_symbols(syms[..., 0], syms[..., 1], params.sf)
+    return PlanarDemodResult(syms[..., 2:], sync, cfo, time_offset)
+
+
+def _max_abs(x: torch.Tensor) -> torch.Tensor:
+    """max |x| over the last axis in one pass, with no |x| temporary."""
+    lo, hi = torch.aminmax(x, dim=-1)
+    return torch.maximum(hi, -lo)
+
+
+def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
+                        assume_normalized: bool, known_offsets,
+                        dec_phase: int = 0):
+    """Common front of the planar demod: normalisation scan, offset
+    estimate (or injection), shifted symbol windows.
+
+    Returns ``(yr, yi, rate, t_off, scale, cfo, time_offset)`` with
+    ``yr/yi`` the [..., S, N] pre-rotation symbol windows."""
+    n, osr, step = params.n, params.osr, params.step
+    total_symbols = xr.shape[-1] // step
+    if total_symbols < 2:
+        raise ValueError("need at least the 2 sync symbols")   # phy.hpp:186
+    xr = xr[..., : total_symbols * step]
+    xi = xi[..., : total_symbols * step]
+
+    # Amplitude normalisation into [-1, 1] (src/phy/LoRaDemod.cpp:59-77),
+    # folded into the derotation factors downstream (the argmax is
+    # scale-invariant), so only the max scan touches the full input.
+    if not assume_normalized:
+        max_amp = torch.maximum(_max_abs(xr), _max_abs(xi))
+        scale = torch.where(max_amp > 1.0, 1.0 / max_amp,
+                            torch.ones_like(max_amp))
+    else:
+        scale = None
+
+    window = _window(params, xr.device)
+    if known_offsets is None:
+        er = xr[..., : 2 * step]
+        ei = xi[..., : 2 * step]
+        if scale is not None:
+            er = er * scale[..., None]
+            ei = ei * scale[..., None]
+        cfo, time_offset = _estimate_planar(er, ei, n, osr, window)
+    else:
+        batch = xr.shape[:-1]
+        cfo = torch.broadcast_to(torch.as_tensor(
+            known_offsets[0], dtype=torch.float32, device=xr.device), batch)
+        time_offset = torch.broadcast_to(torch.as_tensor(
+            known_offsets[1], dtype=torch.float32, device=xr.device), batch)
+
+    t_off = _round_half_away(time_offset).to(torch.int32)
+    rate = -_TWO_PI_F32 * cfo / float(n)
+
+    yr = _shifted_symbol_gather(xr, total_symbols, n, osr, t_off, dec_phase)
+    yi = _shifted_symbol_gather(xi, total_symbols, n, osr, t_off, dec_phase)
+    return yr, yi, rate, t_off, scale, cfo, time_offset
+
+
+def _rotated_windows_planar(yr: torch.Tensor, yi: torch.Tensor,
+                            rate: torch.Tensor, t_off: torch.Tensor, scale,
+                            params: LoraParams):
+    """Derotation with the scale and the window folded into the rotation
+    factors: the pre-DFT [..., S, N] planes. Only the per-sample
+    ``exp(j*rate*i)`` factor is applied — the per-symbol constant phase
+    ``rate*(s*N + t_off/osr)`` leaves every magnitude unchanged, so
+    ``t_off`` is accepted for signature stability only (see the JAX twin)."""
+    del t_off
+    n = params.n
+    phi = rate[..., None] * torch.arange(n, dtype=torch.float32,
+                                         device=rate.device)   # [..., N]
+    cr, si_ = torch.cos(phi), torch.sin(phi)
+    if scale is not None:
+        cr = cr * scale[..., None]
+        si_ = si_ * scale[..., None]
+    window = _window(params, rate.device)
+    if window is not None:
+        cr, si_ = cr * window, si_ * window
+    cr = cr[..., None, :]
+    si_ = si_[..., None, :]
+    fr = yr * cr - yi * si_
+    fi = yr * si_ + yi * cr
+    return fr, fi
+
+
+def split_complex(x: torch.Tensor):
+    """complex64 [..., L] -> (re, im) contiguous float32 planes."""
+    return x.real.to(torch.float32).contiguous(), x.imag.to(torch.float32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Planar TX + dechirp
+# ---------------------------------------------------------------------------
+
+def modulate_planar(symbols: torch.Tensor, params: LoraParams,
+                    amplitude: float = 1.0):
+    """Symbols -> phase-continuous chirped (re, im) float32 planes with the
+    2-symbol sync preamble (src/phy/LoRaMod.cpp:8-43).
+    [..., S] -> ((re, im) [..., (S+2)*step])."""
+    from .chirp import modulate_symbols_planar
+
+    return modulate_symbols_planar(
+        symbols, params.sf, params.osr, params.scale, amplitude,
+        params.sync_word, params.continuous_chirp,
+    )
+
+
+def dechirp_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams):
+    """Planar external dechirp — multiply every symbol period by the base
+    downchirp (the working-path contract, tests/e2e_chain_test.cpp:80-93)."""
+    from .chirp import base_downchirp_planar
+
+    dr, di = device_table(base_downchirp_planar, params.sf, params.scale,
+                          params.osr, device=xr.device)
+    step = params.step
+    nsym = xr.shape[-1] // step
+    lead = xr.shape[:-1]
+    ar = xr[..., : nsym * step].reshape(*lead, nsym, step)
+    ai = xi[..., : nsym * step].reshape(*lead, nsym, step)
+    yr = ar * dr - ai * di
+    yi = ar * di + ai * dr
+    return (yr.reshape(*lead, nsym * step), yi.reshape(*lead, nsym * step))
