@@ -20,8 +20,22 @@ Imports no JAX. Phases, one line each (or a few):
    decoded bit-exact, sync 0x12, the kernel launched; per-stage times
    (CUDA events, median after a warm-up);
 4. the same demod with fused=False (the plain torch path): the same
-   symbols; both times, and the kernel against its twin on the main
-   path's own rows.
+   symbols; both times, the kernel against its twin on the main path's
+   own rows, and one torch.profiler pass of the fused demod;
+5. the block receiver at bench.py's block-receive width: 8 channels x 512
+   frames of one 16-byte SF7 BW125 payload each (32 symbols, 4 zero
+   windows after every frame: 25.3 M IQ samples per plane) through
+   models.sync.receive_block_planar on its circular path; at least
+   8 x 511 frames found, every found frame bit-exact with sync 0x12,
+   starts increasing per channel; the median time, Gsamples/s and
+   frames/s, and one torch.profiler pass (top device ops, idle share);
+6. the barrel path and the stream receiver at reduced width (8 channels
+   x 64 frames): the same stream at osr 2 and at osr 1 with the Hann
+   window, every frame bit-exact; BatchStreamDemodulator over one
+   phase-5 channel in fixed blocks, every frame once at its true start;
+7. the block receiver on the card against the same call on the CPU
+   (2 channels x 16 frames): equal found / start / cfo_bins / symbols /
+   sync.
 
 Then a JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
@@ -37,12 +51,18 @@ import numpy as np
 import torch
 
 from lora_phy_tpu_torch import LoraParams, Window, _build
-from lora_phy_tpu_torch.models import modem
+from lora_phy_tpu_torch.models import modem, stream, sync
 from lora_phy_tpu_torch.ops import fused_demod as fused
 from lora_phy_tpu_torch.ops import planar
 
 CHANNELS, FRAMES, PAYLOAD_LEN, POOL = 8, 8192, 32, 64
 NEAR_TIE_REL = 1e-5
+# bench.py's block-receive workload: frames per channel, payload bytes,
+# zero windows after each frame
+BLOCK_FRAMES, BLOCK_PAYLOAD, BLOCK_GAP = 512, 16, 4
+# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor
+# cores, HBM bandwidth
+PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
 
 
 def check(ok, msg):
@@ -64,6 +84,47 @@ def cuda_ms(fn, iters=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def profile_once(fn, label, calls=5):
+    """One torch.profiler window of ``calls`` back-to-back calls of
+    ``fn()`` after a warm-up: per call, the top five device kernels by
+    time and the device busy time (the union of kernel intervals); the
+    idle share is one minus busy over the host wall time of the same
+    window, so it includes the profiler's own host cost (an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"{label}: profiler recorded no device events (not measured)", flush=True)
+        return
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= calls
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{label}: profiler, {calls} calls in one window, per call: wall "
+          f"{wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1.0 - busy / 1e3 / wall_ms:.3f}, {len(spans) / calls:.0f} device events",
+          flush=True)
+    for name, us in top:
+        print(f"{label}:   {us / calls / 1e3:.3f} ms  {name[:110]}", flush=True)
 
 
 def twin_top2_gap(rows, params):
@@ -144,6 +205,10 @@ def main():
     # phase 2: the kernel against its plain twin
     phase2_kernel_vs_twin(dev)
     record = phase3_4_main_path(dev, card)
+    torch.cuda.empty_cache()
+    xr, xi, pay = phase5_block_receiver(dev, card)
+    phase6_barrel_and_stream(dev, xr, xi, pay)
+    phase7_card_vs_cpu(dev, xr, xi)
 
     check("jax" not in sys.modules, "the port imported JAX")
     print(json.dumps({"kernels": [record]}), flush=True)
@@ -207,6 +272,8 @@ def phase3_4_main_path(dev, card):
     print(f"phase 4: {card}: demodulate_planar fused=True {t_fused:.3f} ms, "
           f"fused=False (plain torch) {t_plain:.3f} ms "
           f"({total_samples / t_plain / 1e6:.3f} Gsamples/s); same symbols", flush=True)
+    profile_once(lambda: planar.demodulate_planar(xr, xi, p, fused=True),
+                 f"phase 4: {card}: demodulate_planar(fused=True)")
 
     yr, yi, rate, t_off, scale, _, _ = planar._demod_stage_planar(xr, xi, p, False, None)
     yr, yi = yr * scale[..., None, None], yi * scale[..., None, None]
@@ -219,16 +286,163 @@ def phase3_4_main_path(dev, card):
     t_kernel = cuda_ms(lambda: fused.fused_detect_rows(*rows, p), iters=10)
     t_twin = cuda_ms(lambda: fused.fused_detect_rows_reference(*rows, p), iters=10)
     n_rows = rows[0].shape[0]
-    print(f"phase 4: {card}: fused_detect_rows on {n_rows} rows x N={p.n}: "
-          f"CUDA kernel {t_kernel:.3f} ms ({8 * p.n ** 2 * n_rows / t_kernel / 1e9:.2f} "
-          f"TFLOP/s), plain twin {t_twin:.3f} ms; bins equal; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
+    # least time for the same work: per row, the N-point DFT the function
+    # needs (an FFT: 5 N log2 N flops; the kernel runs it as dense N x N
+    # products, 8 N^2) plus derotation, |.|^2 and the compare (12 N); each
+    # input read once (the rows, start, rate and the two tables), the bins
+    # written once
+    n = p.n
+    log2n = n.bit_length() - 1
+    flops = n_rows * (5 * n * log2n + 12 * n)
+    nbytes = 4 * (2 * n_rows * n + 2 * n_rows + 2 * n * n + n_rows)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"phase 4: {card}: fused_detect_rows on {n_rows} rows x N={n}: "
+          f"CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s; "
+          f"{8 * n ** 2 * n_rows / t_kernel / 1e9:.2f} TFLOP/s of the dense DFT it runs), "
+          f"plain twin {t_twin:.3f} ms; bins equal; bound {bound_ms:.3f} ms "
+          f"by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B), {bound_ms / t_kernel:.3f} of "
+          f"it; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB",
+          flush=True)
+    del rows
 
     return {"name": "fused_demod", "route": "cuda",
             "source": "lora_phy_tpu_torch/csrc/fused_demod.cu",
             "replaces": "lora_phy_tpu/ops/pallas_demod.py:53",
             "launches": launches, "max_abs_err": max_abs_err,
-            "ms": t_kernel, "plain_ms": t_twin}
+            "ms": t_kernel, "plain_ms": t_twin,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes derotate + DFT + |.|^2 + argmax
+            "library_ms": None}
+
+
+def block_stream(dev, params, channels, frames):
+    """bench.py's block-receive stream built by the port: per channel one
+    16-byte payload framed by frame_modulate_planar and repeated
+    ``frames`` times, each frame followed by BLOCK_GAP zero windows.
+    Returns the planes [C, frames * period], the payloads and the period."""
+    pay = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (channels, BLOCK_PAYLOAD)).astype(np.uint8)).to(dev)
+    fr, fi = stream.frame_modulate_planar(modem.encode(pay), params)
+    gap = torch.zeros(channels, BLOCK_GAP * params.step, device=dev)
+    xr = torch.cat([fr, gap], -1).repeat(1, frames)
+    xi = torch.cat([fi, gap], -1).repeat(1, frames)
+    return xr, xi, pay, fr.shape[-1] + gap.shape[-1]
+
+
+def check_block(blk, pay, min_found, label):
+    """Every found frame decodes to its channel's payload with sync 0x12,
+    starts strictly increase per channel, and at least ``min_found``
+    frames are found. Returns the found count."""
+    found = blk.found
+    n_found = int(found.sum())
+    check(n_found >= min_found, f"{label}: {n_found} frames found, need {min_found}")
+    ok = (modem.decode(blk.symbols) == pay[:, None, :]).all(-1)
+    check(bool(ok[found].all()), f"{label}: {int((~ok[found]).sum())} found frames "
+          "do not decode to their payload")
+    check(bool((blk.sync[found] == 0x12).all()), f"{label}: sync word is not 0x12")
+    big = torch.iinfo(torch.int32).max
+    st = torch.where(found, blk.start, big)
+    inc = (st[:, 1:] > st[:, :-1]) | ~found[:, 1:]
+    check(bool(inc.all()), f"{label}: starts do not increase per channel")
+    return n_found
+
+
+def phase5_block_receiver(dev, card):
+    """The block receiver at bench.py's block-receive width; returns the
+    stream and payloads for phases 6-7."""
+    p = LoraParams(sf=7)
+    xr, xi, pay, period = block_stream(dev, p, CHANNELS, BLOCK_FRAMES)
+    n_pay = 2 * BLOCK_PAYLOAD
+    total = xr.numel()
+
+    def run():
+        return sync.receive_block_planar(xr, xi, p, n_pay, max_frames=BLOCK_FRAMES,
+                                         min_power_db=-30.0)
+
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    blk = run()
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    n_found = check_block(blk, pay, CHANNELS * (BLOCK_FRAMES - 1), "phase 5")
+    starts = blk.start[blk.found]
+    true = torch.remainder(starts, period) == 0
+    print(f"phase 5: block receiver (circular path) on {CHANNELS} x {xr.shape[-1]} "
+          f"samples ({total / 1e6:.1f} M IQ samples per plane): {n_found} of "
+          f"{CHANNELS * BLOCK_FRAMES} frames found, all decoded bit-exact, sync 0x12, "
+          f"starts increasing, {int(true.sum())} at their true start; fused_demod "
+          f"launches in this run {launches} (the receiver does not call "
+          f"demodulate_planar)", flush=True)
+    t = cuda_ms(run, iters=10)
+    print(f"phase 5: {card}: receive_block_planar {t:.3f} ms median of 10 "
+          f"({total / t / 1e6:.3f} Gsamples/s, {n_found / t * 1e3:.0f} frames/s); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
+    scan_t = cuda_ms(lambda: sync.frame_sync_scan_planar(xr, xi, p, min_power_db=-30.0),
+                     iters=10)
+    print(f"phase 5: {card}: of which frame_sync_scan_planar {scan_t:.3f} ms "
+          f"median of 10", flush=True)
+    profile_once(run, f"phase 5: {card}: receive_block_planar")
+    return xr, xi, pay
+
+
+def phase6_barrel_and_stream(dev, xr1, xi1, pay1):
+    """The barrel path (osr 2; osr 1 with the Hann window) at reduced
+    width, and BatchStreamDemodulator over one phase-5 channel."""
+    frames = 64
+    n_pay = 2 * BLOCK_PAYLOAD
+    for p, label in ((LoraParams(sf=7, osr=2), "osr 2"),
+                     (LoraParams(sf=7, window=Window.HANN), "osr 1 Hann")):
+        xr, xi, pay, _ = block_stream(dev, p, CHANNELS, frames)
+        t0 = time.perf_counter()
+        blk = sync.receive_block_planar(xr, xi, p, n_pay, max_frames=frames,
+                                        min_power_db=-30.0)
+        n_found = check_block(blk, pay, CHANNELS * frames, f"phase 6 {label}")
+        print(f"phase 6: barrel path {label}: {n_found} of {CHANNELS * frames} frames "
+              f"found and decoded bit-exact, sync 0x12 "
+              f"({(time.perf_counter() - t0) * 1e3:.1f} ms, first call)", flush=True)
+
+    p = LoraParams(sf=7)
+    demod = stream.BatchStreamDemodulator(p, n_pay, max_frames=24, device=dev)
+    period = xr1.shape[-1] // BLOCK_FRAMES
+    block = 16 * period + 777                 # blocks do not align with frames
+    st = demod.init_state()
+    got = []
+    t0 = time.perf_counter()
+    for off in range(0, xr1.shape[-1], block):
+        st, out = demod.process(st, xr1[0, off:off + block], xi1[0, off:off + block])
+        got.extend(out)
+    dt = time.perf_counter() - t0
+    starts = [g[0] for g in got]
+    check(starts == [k * period for k in range(BLOCK_FRAMES)],
+          f"phase 6 stream: {len(got)} frames reported, not each of the "
+          f"{BLOCK_FRAMES} once at its true start")
+    syms = torch.stack([g[1] for g in got])
+    check(bool((modem.decode(syms) == pay1[0]).all()),
+          "phase 6 stream: a reported frame does not decode to its payload")
+    check(all(g[2] == 0x12 for g in got), "phase 6 stream: sync word is not 0x12")
+    print(f"phase 6: BatchStreamDemodulator over one phase-5 channel in blocks of "
+          f"{block} samples: all {len(got)} frames once, at their true starts, "
+          f"bit-exact ({dt:.2f} s host clock for "
+          f"{-(-xr1.shape[-1] // block)} blocks)", flush=True)
+
+
+def phase7_card_vs_cpu(dev, xr, xi):
+    """The receiver on the card and on the CPU, same input and process."""
+    p = LoraParams(sf=7)
+    period = xr.shape[-1] // BLOCK_FRAMES
+    xr, xi = xr[:2, :16 * period], xi[:2, :16 * period]
+    args = (p, 2 * BLOCK_PAYLOAD)
+    kw = {"max_frames": 16, "min_power_db": -30.0}
+    gpu = sync.receive_block_planar(xr, xi, *args, **kw)
+    cpu = sync.receive_block_planar(xr.cpu(), xi.cpu(), *args, **kw)
+    for f in ("found", "start", "cfo_bins", "symbols", "sync"):
+        check(torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)),
+              f"phase 7: {f} differs between the card and the CPU")
+    print(f"phase 7: receive_block_planar on 2 x {xr.shape[-1]} samples: found, "
+          f"start, cfo_bins, symbols, sync equal on the card and the CPU "
+          f"({int(cpu.found.sum())} frames)", flush=True)
 
 
 if __name__ == "__main__":

@@ -12,11 +12,15 @@ mirrors its JAX twin file for file:
   ops/fused_demod.py  the fused derotate + DFT + argmax kernel and its
                       plain PyTorch twin
   models/modem.py     encode / decode and the complex-input API
+  models/stream.py    frame synthesis and the block-wise stream receiver
+  models/sync.py      the frame-sync scan and the block receiver
+  utils/params.py     LoraParams, Window, Bandwidth (the port's own copy)
 
 Functions take tensors and compute on the device those tensors live on;
-functions that create a tensor from nothing take an explicit ``device=``.
-``LoraParams`` is the JAX package's own class (its ``utils.params``
-module imports no JAX), so one params object drives both packages.
+functions that create a tensor from nothing take ``device=``, which
+defaults to the first CUDA card (:func:`device_of`). The port imports
+nothing of the JAX package; ``utils.params.from_fields`` carries a JAX
+``LoraParams`` over.
 
 The parity contract is float32 on every device, so TF32 is switched off
 here, once, at import.
@@ -29,12 +33,13 @@ import functools
 import numpy as np
 import torch
 
-from lora_phy_tpu.utils.params import (  # noqa: F401
+from .utils.params import (  # noqa: F401
     Bandwidth,
     LoraMetrics,
     LoraParams,
     Window,
     bw_scale,
+    from_fields,
 )
 
 __version__ = "0.1.0"
@@ -45,12 +50,18 @@ torch.backends.cudnn.allow_tf32 = False
 
 def device_of(x=None, device=None) -> torch.device:
     """The device to compute on: ``device`` when given, else the device of
-    the tensor ``x``. Raises rather than picking a device silently."""
+    the tensor ``x``, else the first CUDA card. Never falls back to the
+    CPU: without a card it raises, and CPU work asks for it explicitly
+    (a CPU tensor or ``device="cpu"``)."""
     if device is not None:
         return torch.device(device)
     if isinstance(x, torch.Tensor):
         return x.device
-    raise ValueError("no device: pass a tensor or an explicit device=")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is false) and no "
+            "device given: pass a CPU tensor or device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def device_table(builder, *args, device) -> object:

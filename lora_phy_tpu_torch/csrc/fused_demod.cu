@@ -13,8 +13,11 @@
 // What bounds it on an H100: at the bench shape (8 channels x 8192 frames x
 // 66 symbols = 4.33 M rows of N = 128) the DFT is 8*N^2*B = 5.7e11 f32
 // flops, while the rows are read once (about 4.4 GB) and one int32 per
-// row is written. Without tensor cores that is f32 FMA throughput, not
-// memory: ~67 TFLOP/s of f32 gives >= 8.5 ms, 3.35 TB/s of HBM 1.3 ms.
+// row is written. Without tensor cores this design is held by f32 FMA
+// throughput: ~67 TFLOP/s of f32 gives >= 8.5 ms. The function itself
+// needs only an N-point DFT per row (an FFT: 5*N*log2(N) flops), so its
+// least time is the HBM traffic, 3.35 TB/s giving 1.3 ms (chip_smoke.py
+// phase 4 computes that bound).
 //
 // Design (simple and correct first): a block of N threads takes kRows rows.
 // Thread k derotates column k of each row into shared memory (sincosf,

@@ -1,6 +1,7 @@
 """Planar-complex (split re/im float32) modulation, dechirp and
-demodulation — the PyTorch twin of ``lora_phy_tpu/ops/planar.py`` (main
-path).
+demodulation — the PyTorch twin of ``lora_phy_tpu/ops/planar.py``: the
+main path, plus the preamble / clock-drift estimators and the spectrum
+demod that the block receiver (:mod:`..models.sync`) runs.
 
 Same estimator, tie-breaks and rounding as the JAX module (and so as the
 reference, src/phy/LoRaDemod.cpp:49-195), computed in float32 on
@@ -273,6 +274,109 @@ def _estimate_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, osr: int,
     return cfo, time_offset
 
 
+def _decimation_phase(params: LoraParams) -> int:
+    """The osr phase where modulated tones are exact: 0 for
+    ``continuous_chirp`` TX or osr 1, ``osr-1`` under the reference's
+    one-sample-early TX fold (docs/SEMANTICS.md §TX fold)."""
+    return 0 if (params.continuous_chirp or params.osr == 1) else params.osr - 1
+
+
+@functools.lru_cache(maxsize=32)
+def _preamble_phase_step(sf: int, osr: int, scale: float) -> float:
+    """Deterministic inter-symbol phase delta of dechirped base upchirps
+    (pi at osr=1/scale=1, pi/2 at osr=2, 0 at scale=2, ...), measured once
+    per configuration from the float64 host oracle — a copy of the JAX
+    module's NumPy builder."""
+    from .chirp import gen_chirp_np
+
+    n = 1 << sf
+    step = n * osr
+    up, _ = gen_chirp_np(n, osr, 2 * step, 0.0, down=False, ampl=1.0,
+                         bw_scale=scale)
+    down, _ = gen_chirp_np(n, osr, step, 0.0, down=True, ampl=1.0,
+                           bw_scale=scale)
+    dech = up.reshape(2, step) * down
+    spec = np.fft.fft(dech.reshape(2, n, osr)[:, :, 0], axis=-1)
+    pk = spec[np.arange(2), np.abs(spec).argmax(-1)]
+    return float(np.angle(pk[1] * np.conj(pk[0])))
+
+
+def estimate_preamble_planar(pr: torch.Tensor, pi: torch.Tensor, n: int,
+                             osr: int, phase_step: float = 0.0,
+                             bin_offset=None) -> torch.Tensor:
+    """Unbiased residual-CFO estimate (in bins, [...]) from dechirped
+    PREAMBLE windows ``[..., S*n*osr]``: coarse = mean(signed argmax +
+    fractional interpolation), fine = peak-phase slope across windows
+    less ``phase_step`` (the modulator's own inter-symbol delta,
+    :func:`_preamble_phase_step`), combined by integer disambiguation.
+
+    ``bin_offset`` ([...] int): expected integer bin of the preamble
+    tones for spectra that arrive rotated by a known shift (the block
+    receiver's circular extraction). The signed wrap re-centers on it and
+    the estimate comes back relative to it."""
+    lead = pr.shape[:-1]
+    s = pr.shape[-1] // (n * osr)
+    vr = pr[..., : s * n * osr].reshape(*lead, s, n, osr)[..., 0]
+    vi = pi[..., : s * n * osr].reshape(*lead, s, n, osr)[..., 0]
+    det = detect_planar(vr, vi, n)
+    if bin_offset is None:
+        sb = torch.where(det.index > n // 2, det.index - n, det.index)
+    else:
+        b0 = torch.as_tensor(bin_offset, dtype=torch.int32,
+                             device=pr.device)[..., None]
+        sb = torch.remainder(det.index - b0 + n // 2, n) - n // 2
+    coarse = torch.mean(sb.to(torch.float32) + det.findex, dim=-1)
+    if s < 2:
+        # one window has no phase slope: the coarse term alone
+        return coarse
+    phase = torch.atan2(det.peak_im, det.peak_re)
+    d = phase[..., 1:] - phase[..., :-1] - float(np.float32(phase_step))
+    d = torch.remainder(d + math.pi, _TWO_PI) - math.pi
+    fine = torch.mean(d, dim=-1) / _TWO_PI_F32          # = cfo mod 1 bin
+    return fine + torch.round(coarse - fine)
+
+
+def estimate_sro_planar(xr: torch.Tensor, xi: torch.Tensor,
+                        params: LoraParams) -> torch.Tensor:
+    """Sample-rate-offset (TX/RX clock drift) estimate in ppm, [...], from
+    dechirped symbol windows ``[..., S*step]``: each window's fractional
+    bin by the sinc-ratio form ``right/(peak+right)``, first differences
+    wrapped to [-1/2, 1/2), averaged, scaled by ``1e6 / (N*scale)``.
+    Windows are decimated where the tone is exact: phase 0 for
+    ``continuous_chirp`` TX or osr 1, ``osr-1`` under the reference fold.
+    Fewer than two windows report zero drift."""
+    n, osr = params.n, params.osr
+    phase = _decimation_phase(params)
+    lead = xr.shape[:-1]
+    s = xr.shape[-1] // (n * osr)
+    if s < 2:
+        return torch.zeros(lead, dtype=torch.float32, device=xr.device)
+
+    def view(a):
+        return a[..., : s * n * osr].reshape(*lead, s, n, osr)[..., phase]
+
+    sr, si = dft_planar(view(xr), view(xi), n)
+    mag2 = sr * sr + si * si                                  # [..., S, N]
+    index = torch.argmax(mag2, dim=-1)
+    peak = torch.sqrt(mag2.amax(dim=-1))
+    left_ix = torch.where(index > 0, index - 1, n - 1)[..., None]
+    right_ix = torch.where(index < n - 1, index + 1, 0)[..., None]
+    left = torch.sqrt(torch.gather(mag2, -1, left_ix)[..., 0])
+    right = torch.sqrt(torch.gather(mag2, -1, right_ix)[..., 0])
+    den_r, den_l = peak + right, peak + left
+    one = torch.ones_like(den_r)
+    fi = torch.where(
+        right >= left,
+        torch.where(den_r > 0.0, right / torch.where(den_r > 0.0, den_r, one),
+                    torch.zeros_like(den_r)),
+        -left / torch.where(den_l > 0.0, den_l, one),
+    )                                                         # [..., S]
+    dd = fi[..., 1:] - fi[..., :-1]
+    dd = torch.remainder(dd + 0.5, 1.0) - 0.5
+    slope = torch.mean(dd, dim=-1)                            # bins/symbol
+    return 1e6 * slope / float(np.float32(n * params.scale))
+
+
 # ---------------------------------------------------------------------------
 # Demodulation
 # ---------------------------------------------------------------------------
@@ -289,12 +393,7 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     its plain twin on a CPU tensor. ``assume_normalized=True`` skips the
     [-1, 1] rescale scan. ``known_offsets=(cfo, time_offset)`` bypasses
     the 2-symbol estimator. Only ``precision='f32'`` is ported."""
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported (ROADMAP.md Queue 1: the "
-            "precision='bf16' path); the port runs float32")
-    if precision != "f32":
-        raise ValueError(f"unknown precision {precision!r}")
+    _check_precision(precision)
     yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
         xr, xi, params, assume_normalized, known_offsets
     )
@@ -311,6 +410,40 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
 
     sync = _sync_from_symbols(syms[..., 0], syms[..., 1], params.sf)
     return PlanarDemodResult(syms[..., 2:], sync, cfo, time_offset)
+
+
+def _check_precision(precision: str) -> None:
+    if precision == "bf16":
+        raise NotImplementedError(
+            "precision='bf16' is not ported (ROADMAP.md Queue 1: the "
+            "precision='bf16' path); the port runs float32")
+    if precision != "f32":
+        raise ValueError(f"unknown precision {precision!r}")
+
+
+def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
+                               params: LoraParams,
+                               assume_normalized: bool = False,
+                               precision: str = "f32", known_offsets=None,
+                               dec_phase: int = 0):
+    """Same pipeline as :func:`demodulate_planar` but returns the full
+    |DFT|² spectra of the DATA symbols (sync pair stripped):
+    ``(mag2 [..., S-2, N], sync, cfo, time_offset)``.
+
+    ``dec_phase`` picks the decimation phase of the symbol windows: pass
+    ``osr-1`` when receiving the reference's default TX fold with an
+    injected time offset of 0 (see modem._shifted_symbol_gather). The
+    only host read is :func:`_shifted_symbol_gather`'s ``t_off == 0``
+    branch. Only ``precision='f32'`` is ported."""
+    _check_precision(precision)
+    yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
+        xr, xi, params, assume_normalized, known_offsets, dec_phase
+    )
+    fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
+    mag2 = dft_mag2_planar(fr, fi, params.n)
+    syms = torch.argmax(mag2[..., :2, :], dim=-1).to(torch.int32)
+    sync = _sync_from_symbols(syms[..., 0], syms[..., 1], params.sf)
+    return mag2[..., 2:, :], sync, cfo, time_offset
 
 
 def _max_abs(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lora_phy_tpu.utils.params import Bandwidth, LoraParams, Window
+from lora_phy_tpu_torch.utils.params import from_fields
 
 torch.set_num_threads(2)
 
@@ -30,6 +31,12 @@ def nn(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def tparams(p):
+    """The port's own ``LoraParams`` with the fields of the JAX params
+    ``p``: every port call in the tests takes these."""
+    return from_fields(p)
 
 
 def golden_params(name: str) -> LoraParams:

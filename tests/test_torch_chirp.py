@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_util import nn, tt
+from _torch_util import nn, tt, tparams
 from lora_phy_tpu.models import modem as jmodem
 from lora_phy_tpu.ops import chirp as jchirp
 from lora_phy_tpu.utils.params import Bandwidth, LoraParams
@@ -102,10 +102,11 @@ def test_gen_chirp_np_bit_equal():
 
 def test_modulate_complex_wrapper_vs_jax():
     p = LoraParams(sf=7)
+    tp = tparams(p)
     payload = np.random.RandomState(2).randint(0, 256, (2, 9)).astype(np.uint8)
     ref = nn(jmodem.modulate(jmodem.encode(payload), p))
-    got = tmodem.modulate(tmodem.encode(tt(payload)), p)
+    got = tmodem.modulate(tmodem.encode(tt(payload)), tp)
     assert got.dtype == torch.complex64
     np.testing.assert_array_equal(nn(got), ref)
-    re, im = tplanar.modulate_planar(tmodem.encode(tt(payload)), p)
+    re, im = tplanar.modulate_planar(tmodem.encode(tt(payload)), tp)
     assert re.shape == (2, 20 * p.step)

@@ -103,9 +103,12 @@ def test_decode_with_crc_vs_jax():
     assert nn(got.crc_ok).tolist() == [True, True, True, False]
 
 
-def test_encode_takes_arrays_only_with_a_device():
+def test_encode_takes_arrays_only_with_a_device(monkeypatch):
+    """An array without ``device=`` goes to the first CUDA card; with no
+    card that raises (no silent CPU fallback), and CPU work says so."""
     payload = np.arange(6, dtype=np.uint8)
-    with pytest.raises(ValueError, match="device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tmodem.encode(payload)
     got = tmodem.encode(payload, device="cpu")
     np.testing.assert_array_equal(nn(got), nn(jmodem.encode(payload)).astype(np.int32))

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_util import GOLDEN, golden_params, nn, tt
+from _torch_util import GOLDEN, golden_params, nn, tt, tparams
 from lora_phy_tpu.models import modem as jmodem
 from lora_phy_tpu.ops import planar as jplanar
 from lora_phy_tpu.utils.params import LoraParams, Window
@@ -65,19 +65,20 @@ def _assert_offsets_match(p, xr, xi, got, ref):
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
 def test_golden_demodulate_unfused(path):
     g, p, xr, xi = _golden(path)
+    tp = tparams(p)
     jdr, jdi = jplanar.dechirp_planar(xr, xi, p)
-    tdr, tdi = tplanar.dechirp_planar(tt(xr), tt(xi), p)
+    tdr, tdi = tplanar.dechirp_planar(tt(xr), tt(xi), tp)
     np.testing.assert_allclose(nn(tdr), nn(jdr), rtol=0, atol=DECHIRP_ATOL)
     np.testing.assert_allclose(nn(tdi), nn(jdi), rtol=0, atol=DECHIRP_ATOL)
 
-    res = tplanar.demodulate_planar(tdr, tdi, p)
+    res = tplanar.demodulate_planar(tdr, tdi, tp)
     assert res.symbols.dtype == torch.int32
     np.testing.assert_array_equal(nn(res.symbols), g["demod"].astype(np.int32))
     assert int(res.sync_word) == int(g["sync"])
     np.testing.assert_array_equal(nn(tmodem.decode(res.symbols)), g["decoded"])
 
     ref = jplanar.demodulate_planar(jdr, jdi, p)
-    same_in = tplanar.demodulate_planar(tt(jdr), tt(jdi), p)
+    same_in = tplanar.demodulate_planar(tt(jdr), tt(jdi), tp)
     np.testing.assert_array_equal(nn(same_in.symbols),
                                   nn(ref.symbols).astype(np.int32))
     assert int(same_in.sync_word) == int(ref.sync_word)
@@ -88,8 +89,9 @@ def test_golden_demodulate_unfused(path):
                          ids=lambda p: p.stem)
 def test_golden_demodulate_fused(path):
     g, p, xr, xi = _golden(path)
-    tdr, tdi = tplanar.dechirp_planar(tt(xr), tt(xi), p)
-    res = tplanar.demodulate_planar(tdr, tdi, p, fused=True)
+    tp = tparams(p)
+    tdr, tdi = tplanar.dechirp_planar(tt(xr), tt(xi), tp)
+    res = tplanar.demodulate_planar(tdr, tdi, tp, fused=True)
     np.testing.assert_array_equal(nn(res.symbols), g["demod"].astype(np.int32))
     assert int(res.sync_word) == int(g["sync"])
     jdr, jdi = jplanar.dechirp_planar(xr, xi, p)
@@ -111,14 +113,15 @@ def _noisy_case(p, snr_db, batch, payload_len, seed):
 def test_noisy_decisions_equal(sf):
     """numpy AWGN at +5 dB per-sample SNR: the same decisions as JAX."""
     p = LoraParams(sf=sf)
+    tp = tparams(p)
     payloads, xr, xi = _noisy_case(p, 5.0, batch=4, payload_len=16, seed=sf)
     ref = jplanar.demodulate_planar(xr, xi, p)
-    got = tplanar.demodulate_planar(tt(xr), tt(xi), p)
+    got = tplanar.demodulate_planar(tt(xr), tt(xi), tp)
     np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
     np.testing.assert_array_equal(nn(got.sync_word), nn(ref.sync_word))
     np.testing.assert_array_equal(nn(tmodem.decode(got.symbols)), payloads)
     if sf == 7:
-        fused = tplanar.demodulate_planar(tt(xr), tt(xi), p, fused=True)
+        fused = tplanar.demodulate_planar(tt(xr), tt(xi), tp, fused=True)
         jfused = jplanar.demodulate_planar(xr, xi, p, fused=True)
         np.testing.assert_array_equal(nn(fused.symbols),
                                       nn(jfused.symbols).astype(np.int32))
@@ -131,14 +134,15 @@ def test_complex_api_vs_jax(sf, window):
     so its floats are held to JAX's own planar-vs-complex tolerances
     (tests/test_planar.py)."""
     p = LoraParams(sf=sf, window=window)
+    tp = tparams(p)
     payload = np.random.RandomState(6).randint(0, 256, 24).astype(np.uint8)
     jiq = jmodem.modulate(jmodem.encode(payload), p)
     jdech = jmodem.dechirp(jiq, p)
     ref = jmodem.demodulate(jdech, p)
-    tiq = tmodem.modulate(tmodem.encode(tt(payload)), p)
-    tdech = tmodem.dechirp(tiq, p)
+    tiq = tmodem.modulate(tmodem.encode(tt(payload)), tp)
+    tdech = tmodem.dechirp(tiq, tp)
     np.testing.assert_allclose(nn(tdech), nn(jdech), rtol=0, atol=2 * DECHIRP_ATOL)
-    got = tmodem.demodulate(tdech, p)
+    got = tmodem.demodulate(tdech, tp)
     np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
     assert int(got.sync_word) == int(ref.sync_word)
     np.testing.assert_allclose(float(got.cfo), float(ref.cfo), atol=1e-5)
@@ -149,11 +153,12 @@ def test_complex_api_vs_jax(sf, window):
 
 def test_known_offsets_and_assume_normalized_vs_jax():
     p = LoraParams(sf=7)
+    tp = tparams(p)
     _, xr, xi = _noisy_case(p, 10.0, batch=3, payload_len=8, seed=1)
     known = (np.float32(0.004), np.float32(2.0))
     for kw in ({"known_offsets": known}, {"assume_normalized": True}):
         ref = jplanar.demodulate_planar(xr, xi, p, **kw)
-        got = tplanar.demodulate_planar(tt(xr), tt(xi), p, **kw)
+        got = tplanar.demodulate_planar(tt(xr), tt(xi), tp, **kw)
         np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
         np.testing.assert_allclose(nn(got.cfo), nn(ref.cfo), rtol=0, atol=CFO_ATOL)
         np.testing.assert_allclose(nn(got.time_offset), nn(ref.time_offset),
@@ -162,8 +167,9 @@ def test_known_offsets_and_assume_normalized_vs_jax():
 
 def test_scale_normalisation_decodes():
     p = LoraParams(sf=7)
+    tp = tparams(p)
     payloads, xr, xi = _noisy_case(p, 20.0, batch=2, payload_len=8, seed=2)
-    got = tplanar.demodulate_planar(tt(4.0 * xr), tt(4.0 * xi), p)
+    got = tplanar.demodulate_planar(tt(4.0 * xr), tt(4.0 * xi), tp)
     np.testing.assert_array_equal(nn(tmodem.decode(got.symbols)), payloads)
 
 
@@ -188,9 +194,10 @@ def test_round_half_away_vs_jax():
 
 def test_bf16_precision_not_ported():
     p = LoraParams(sf=7)
+    tp = tparams(p)
     x = torch.zeros(1, 4 * p.step)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanar.demodulate_planar(x, x, p, precision="bf16")
+        tplanar.demodulate_planar(x, x, tp, precision="bf16")
 
 
 @pytest.mark.parametrize("n", [64, 128, 512, 4096])
@@ -241,3 +248,110 @@ def test_argmax_natural_tie_vs_jax():
     np.testing.assert_array_equal(nn(got_b), nn(ref_b))
     np.testing.assert_array_equal(nn(got_p), nn(ref_p))
     assert nn(got_b).tolist() == [30, 100]
+
+
+# ---------------------------------------------------------------------------
+# The block receiver's estimators and the spectrum demod
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sf,osr,scale", [(7, 1, 1.0), (7, 2, 1.0), (7, 1, 2.0),
+                                          (9, 4, 1.0), (8, 1, 4.0)])
+def test_preamble_phase_step_bit_equal(sf, osr, scale):
+    assert tplanar._preamble_phase_step(sf, osr, scale) == \
+        jplanar._preamble_phase_step(sf, osr, scale)
+
+
+def _preamble_windows(p, cfo_bins, windows, noise, seed):
+    """Dechirped base upchirps at a CFO of ``cfo_bins``, plus AWGN."""
+    rng = np.random.RandomState(seed)
+    zeros = np.zeros((3, windows - 2), np.int32)
+    re, im = jplanar.modulate_planar(zeros, LoraParams(sf=p.sf, osr=p.osr,
+                                                       sync_word=0))
+    x = np.asarray(re) + 1j * np.asarray(im)
+    t = np.arange(x.shape[-1])
+    x = x * np.exp(2j * np.pi * cfo_bins[:, None] * t / p.step)
+    x = x + noise * (rng.randn(*x.shape) + 1j * rng.randn(*x.shape))
+    xr, xi = jplanar.split_complex(x.astype(np.complex64))
+    return jplanar.dechirp_planar(xr, xi, p)
+
+
+@pytest.mark.parametrize("osr", [1, 2])
+def test_estimate_preamble_planar_vs_jax(osr):
+    """Residual CFO from 8 preamble windows at fractional CFOs, with and
+    without a bin offset, and from one window. Held to CFO_ATOL (1e-6
+    bins): the coarse mean reads the fractional interpolator and the fine
+    term the peak phases, both from float32 DFT sums whose order differs
+    between torch's matmul and XLA's dot."""
+    p = LoraParams(sf=7, osr=osr)
+    cfo = np.array([0.3, -1.45, 2.2])
+    dr, di = _preamble_windows(p, cfo, 8, 0.05, seed=osr)
+    pps = jplanar._preamble_phase_step(p.sf, p.osr, p.scale)
+    b0 = np.array([0, 3, 127], np.int32)
+    for kw in ({}, {"bin_offset": b0}):
+        ref = jplanar.estimate_preamble_planar(dr, di, p.n, osr, phase_step=pps, **kw)
+        got = tplanar.estimate_preamble_planar(tt(dr), tt(di), p.n, osr,
+                                               phase_step=pps,
+                                               **{k: tt(v) for k, v in kw.items()})
+        assert got.dtype == torch.float32 and got.shape == (3,)
+        np.testing.assert_allclose(nn(got), nn(ref), rtol=0, atol=CFO_ATOL)
+    one = p.step
+    ref = jplanar.estimate_preamble_planar(dr[..., :one], di[..., :one], p.n, osr)
+    got = tplanar.estimate_preamble_planar(tt(dr[..., :one]), tt(di[..., :one]), p.n, osr)
+    np.testing.assert_allclose(nn(got), nn(ref), rtol=0, atol=CFO_ATOL)
+
+
+SRO_ATOL_PPM = 0.05
+
+
+@pytest.mark.parametrize("osr,continuous", [(1, False), (2, False), (2, True)])
+def test_estimate_sro_planar_vs_jax(osr, continuous):
+    """Clock drift in ppm from dechirped noisy payload windows (fold-aware
+    decimation phase at osr 2). Held to 0.05 ppm: a mean of per-window
+    fractional-bin differences, each a ratio of float32 DFT magnitudes
+    summed in another order, scaled by 1e6/N (one float32 ulp of a
+    fractional bin is ~1e-7, i.e. ~1e-3 ppm at N = 128, with headroom
+    for the noise windows' flatter peaks)."""
+    p = LoraParams(sf=7, osr=osr, continuous_chirp=continuous)
+    payloads, xr, xi = _noisy_case(p, 10.0, batch=2, payload_len=10, seed=osr)
+    ref = jplanar.estimate_sro_planar(xr, xi, p)
+    got = tplanar.estimate_sro_planar(tt(xr), tt(xi), tparams(p))
+    np.testing.assert_allclose(nn(got), nn(ref), rtol=0, atol=SRO_ATOL_PPM)
+    short = tplanar.estimate_sro_planar(tt(xr[..., : p.step]), tt(xi[..., : p.step]),
+                                        tparams(p))
+    np.testing.assert_array_equal(nn(short), np.zeros(2, np.float32))
+
+
+SPECTRUM_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("osr,window,dec_phase", [(1, Window.NONE, 0),
+                                                  (2, Window.NONE, 1),
+                                                  (1, Window.HANN, 0)])
+def test_demodulate_spectrum_planar_vs_jax(osr, window, dec_phase):
+    """The spectrum demod with injected offsets (the block receiver's
+    call) and with its own estimator: the argmax of the spectra, the sync
+    word and the decoded bytes bit-equal; spectra within 2e-5 relative to
+    each frame's peak (float32 sums of N terms in another order)."""
+    p = LoraParams(sf=7, osr=osr, window=window)
+    tp = tparams(p)
+    payloads, xr, xi = _noisy_case(p, 10.0, batch=3, payload_len=8, seed=4)
+    cfo = np.array([0.01, -0.02, 0.015], np.float32)    # true CFO is 0
+    for known in ((cfo, np.zeros(3, np.float32)), None):
+        ref = jplanar.demodulate_spectrum_planar(xr, xi, p, known_offsets=known,
+                                                 dec_phase=dec_phase)
+        tknown = None if known is None else tuple(tt(k) for k in known)
+        got = tplanar.demodulate_spectrum_planar(tt(xr), tt(xi), tp,
+                                                 known_offsets=tknown,
+                                                 dec_phase=dec_phase)
+        mag, rmag = nn(got[0]), nn(ref[0])
+        assert mag.shape == rmag.shape == (3, 16, p.n)
+        np.testing.assert_array_equal(mag.argmax(-1), rmag.argmax(-1))
+        np.testing.assert_array_equal(nn(got[1]), nn(ref[1]))
+        peak = rmag.max(-1, keepdims=True)
+        assert np.abs(mag - rmag).max() <= SPECTRUM_RTOL * peak.max()
+        np.testing.assert_allclose(nn(got[2]), nn(ref[2]), rtol=0, atol=CFO_ATOL)
+        if known is not None:
+            np.testing.assert_array_equal(
+                nn(tmodem.decode(torch.argmax(got[0], -1).to(torch.int32))), payloads)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tplanar.demodulate_spectrum_planar(tt(xr), tt(xi), tp, precision="bf16")

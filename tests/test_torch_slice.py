@@ -5,6 +5,7 @@ size, the port's constant tables against JAX's NumPy tables (they stand
 in for a weight converter: a PHY has no learned weights), and the port's
 freedom from JAX at import."""
 
+import ast
 import os
 import pathlib
 import subprocess
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_util import nn, tt
+from _torch_util import nn, tt, tparams
 from lora_phy_tpu.models import modem as jmodem
 from lora_phy_tpu.ops import chirp as jchirp
 from lora_phy_tpu.ops import coding as jcoding
@@ -40,6 +41,7 @@ def bench_chain():
     """The bench chain at 2 channels x 16 frames of 32-byte SF7 payloads,
     through JAX and through the port, on the same numpy-seeded pool."""
     p = LoraParams(sf=7)
+    tp = tparams(p)
     pool = np.random.RandomState(0).randint(0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)
     reps = CHANNELS * FRAMES // POOL
     full = np.tile(pool, (reps, 1)).reshape(CHANNELS, FRAMES, PAYLOAD_LEN)
@@ -52,10 +54,10 @@ def bench_chain():
 
     t = {"syms": tmodem.encode(torch.from_numpy(pool).repeat(reps, 1)
                                .reshape(CHANNELS, FRAMES, PAYLOAD_LEN))}
-    t["tx"] = tplanar.modulate_planar(t["syms"], p)
-    t["dech"] = tplanar.dechirp_planar(*t["tx"], p)
-    t["demod"] = tplanar.demodulate_planar(*t["dech"], p)
-    t["demod_fused"] = tplanar.demodulate_planar(*t["dech"], p, fused=True)
+    t["tx"] = tplanar.modulate_planar(t["syms"], tp)
+    t["dech"] = tplanar.dechirp_planar(*t["tx"], tp)
+    t["demod"] = tplanar.demodulate_planar(*t["dech"], tp)
+    t["demod_fused"] = tplanar.demodulate_planar(*t["dech"], tp, fused=True)
     return p, full, j, t
 
 
@@ -106,9 +108,10 @@ _TABLES = {
     "combined_fourstep_1024": (lambda: tplanar._combined_fourstep_mats(1024),
                                lambda: jplanar._combined_fourstep_mats(1024)),
     "fused_dft_hann_128": (
-        lambda: tfused._dft_tables(128, tuple(tmodem._window_table(_HANN7))),
+        lambda: tfused._dft_tables(128, tuple(tmodem._window_table(tparams(_HANN7)))),
         lambda: jfused._dft_tables(128, tuple(jmodem._window_table(_HANN7)))),
-    "hann_window": (lambda: (tmodem._window_table(_HANN7), tmodem._window_table(_HANN12)),
+    "hann_window": (lambda: (tmodem._window_table(tparams(_HANN7)),
+                             tmodem._window_table(tparams(_HANN12))),
                     lambda: (jmodem._window_table(_HANN7), jmodem._window_table(_HANN12))),
 }
 
@@ -134,12 +137,19 @@ def test_device_table_uploads_the_numpy_table():
     assert lt.device_table(tplanar._small_dft_tables, 64, device="cpu")[0] is wr
 
 
-def test_device_of_never_guesses():
+def test_device_of_never_guesses(monkeypatch):
+    """An explicit device or the input tensor's device wins; otherwise the
+    first CUDA card, and without one a clear error — never the CPU."""
     x = torch.zeros(2)
     assert lt.device_of(x) == torch.device("cpu")
     assert lt.device_of(None, device="cpu") == torch.device("cpu")
-    with pytest.raises(ValueError, match="device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         lt.device_of(np.zeros(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lt.device_of(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert lt.device_of(np.zeros(2)) == torch.device("cuda", 0)
 
 
 def test_tf32_off_at_import():
@@ -148,15 +158,42 @@ def test_tf32_off_at_import():
 
 
 def test_import_without_jax():
-    """Importing the port and every module of it leaves JAX unloaded."""
-    code = ("import sys\n"
-            "import lora_phy_tpu_torch, lora_phy_tpu_torch._build\n"
-            "import lora_phy_tpu_torch.ops.coding, lora_phy_tpu_torch.ops.chirp\n"
-            "import lora_phy_tpu_torch.ops.fft, lora_phy_tpu_torch.ops.planar\n"
-            "import lora_phy_tpu_torch.ops.fused_demod, lora_phy_tpu_torch.models.modem\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            "assert not bad, bad\n")
+    """Importing the port and every module of it loads neither JAX nor
+    any module of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import lora_phy_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'lora_phy_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'lora_phy_tpu_torch.models.sync' in names, names\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'lora_phy_tpu')\n"
+            "             or m.startswith(('jax.', 'lora_phy_tpu.')))\n"
+            "assert not bad, bad\n"
+            "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 12
+
+
+def _imported_modules(path: pathlib.Path) -> set:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(
+    [*(REPO / "lora_phy_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_names_the_jax_package(path):
+    """No import statement of the port or of chip_smoke.py names jax or
+    the JAX package, even one that would not load JAX."""
+    bad = sorted(m for m in _imported_modules(path)
+                 if m.split(".")[0] in ("jax", "lora_phy_tpu"))
+    assert not bad, bad
