@@ -10,9 +10,10 @@ Imports no JAX. Phases, one line each (or a few):
 0. the card: ``nvidia-smi`` name and power limit, and torch's device name;
 1. build and load the CUDA kernel (seconds);
 2. the kernel against its plain PyTorch twin on the card: SF5-7, with and
-   without the Hann window, at random nonzero start/rate — clean chirp
-   rows bit-equal, noise rows differing only at float32 near-ties — and
-   the equal-power tie row (bin 0);
+   without the Hann window, at random nonzero start/rate and a per-row
+   amplitude scale — clean chirp rows bit-equal, noise rows (a ragged
+   count) differing only at float32 near-ties — and the equal-power tie
+   row (bin 0);
 3. the main path at bench.py's headline size: 8 channels x 8192 frames of
    32-byte SF7 BW125 payloads (66 symbols x 128 samples per frame, 554 M IQ
    samples), encode -> modulate_planar -> dechirp_planar ->
@@ -21,7 +22,9 @@ Imports no JAX. Phases, one line each (or a few):
    (CUDA events, median after a warm-up);
 4. the same demod with fused=False (the plain torch path): the same
    symbols; both times, the kernel against its twin on the main path's
-   own rows, and one torch.profiler pass of the fused demod;
+   own rows and scale, its bound, the time of cuFFT's DFT alone over the
+   same rows (a yardstick the port never calls), and one torch.profiler
+   pass of the fused demod;
 5. the block receiver at bench.py's block-receive width: 8 channels x 512
    frames of one 16-byte SF7 BW125 payload each (32 symbols, 4 zero
    windows after every frame: 25.3 M IQ samples per plane) through
@@ -71,18 +74,23 @@ def check(ok, msg):
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters=5):
-    """Median CUDA-event time of ``fn()`` in ms, after one warm-up call."""
+def cuda_ms(fn, iters=5, calls=1):
+    """Median CUDA-event time of ``fn()`` in ms, after one warm-up call.
+    With ``calls`` > 1 each sample spans that many back-to-back calls and
+    is divided by it, so a call's host time before its launch hides
+    behind the previous call's device work: the device time of a kernel
+    rather than the latency of one call on an idle card."""
     fn()
     times = []
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -127,10 +135,16 @@ def profile_once(fn, label, calls=5):
         print(f"{label}:   {us / calls / 1e3:.3f} ms  {name[:110]}", flush=True)
 
 
-def twin_top2_gap(rows, params):
+def twin_top2_gap(rows, params, scale_rows):
     """Relative gap between the twin's two largest |DFT|^2 per row."""
-    top2 = fused.reference_power(*rows, params).topk(2, dim=-1).values
+    xr, xi, start, rate = rows
+    xr, xi = xr * scale_rows[:, None], xi * scale_rows[:, None]
+    top2 = fused.reference_power(xr, xi, start, rate, params).topk(2, dim=-1).values
     return (top2[:, 0] - top2[:, 1]) / top2[:, 0]
+
+
+def uniform_rows(gen, b, lo, hi, dev):
+    return torch.from_numpy(gen.uniform(lo, hi, b).astype(np.float32)).to(dev)
 
 
 def phase2_kernel_vs_twin(dev):
@@ -145,31 +159,35 @@ def phase2_kernel_vs_twin(dev):
             dr, di = planar.dechirp_planar(*planar.modulate_planar(modem.encode(payload), p), p)
             cr, ci = dr.reshape(-1, n).contiguous(), di.reshape(-1, n).contiguous()
             b = cr.shape[0]
-            start = torch.from_numpy(gen.uniform(-300, 300, b).astype(np.float32)).to(dev)
-            rate = torch.from_numpy((gen.uniform(-0.3, 0.3, b) * 2 * np.pi / n)
-                                    .astype(np.float32)).to(dev)
-            k = fused.fused_detect_rows(cr, ci, start, rate, p)
-            r = fused.fused_detect_rows_reference(cr, ci, start, rate, p)
+            start = uniform_rows(gen, b, -300, 300, dev)
+            rate = uniform_rows(gen, b, -0.3, 0.3, dev) * (2 * np.pi / n)
+            # amplitudes above 1, brought back by the per-row scale
+            gain = uniform_rows(gen, b, 1.0, 8.0, dev)
+            cr, ci = cr * gain[:, None], ci * gain[:, None]
+            scale = 1.0 / gain
+            k = fused.fused_detect_rows(cr, ci, start, rate, p, scale)
+            r = fused.fused_detect_rows_reference(cr, ci, start, rate, p, scale)
             clean_diff = int((k != r).sum())
             check(clean_diff == 0, f"SF{sf} {window.name}: {clean_diff} clean rows differ")
-            # noise rows
-            b = 65536
+            # noise rows, a count that does not fill the kernel's blocks
+            b = 65536 + 7
             rows = [torch.from_numpy(a).to(dev) for a in (
                 gen.randn(b, n).astype(np.float32), gen.randn(b, n).astype(np.float32),
                 gen.uniform(-300, 300, b).astype(np.float32),
                 gen.uniform(-0.5, 0.5, b).astype(np.float32))]
-            k = fused.fused_detect_rows(*rows, p)
-            r = fused.fused_detect_rows_reference(*rows, p)
+            scale = uniform_rows(gen, b, 0.2, 1.0, dev)
+            k = fused.fused_detect_rows(*rows, p, scale)
+            r = fused.fused_detect_rows_reference(*rows, p, scale)
             differ = (k != r).nonzero().flatten()
             near_ties = 0
             if differ.numel():
-                gap = twin_top2_gap([t[differ] for t in rows], p)
+                gap = twin_top2_gap([t[differ] for t in rows], p, scale[differ])
                 near_ties = int((gap <= NEAR_TIE_REL).sum())
                 check(near_ties == differ.numel(),
                       f"SF{sf} {window.name}: {differ.numel() - near_ties} noise rows "
                       f"differ beyond a {NEAR_TIE_REL:g} near-tie")
-            print(f"phase 2: SF{sf} window={window.name}: {cr.shape[0]} clean rows equal; "
-                  f"{b} noise rows, {differ.numel()} differ, all at near-ties "
+            print(f"phase 2: SF{sf} window={window.name}: {cr.shape[0]} clean rows equal "
+                  f"(scaled); {b} scaled noise rows, {differ.numel()} differ, all at near-ties "
                   f"(top-2 within {NEAR_TIE_REL:g} relative)", flush=True)
     p = LoraParams(sf=7)
     x = torch.zeros(1, p.n, device=dev)
@@ -276,36 +294,47 @@ def phase3_4_main_path(dev, card):
                  f"phase 4: {card}: demodulate_planar(fused=True)")
 
     yr, yi, rate, t_off, scale, _, _ = planar._demod_stage_planar(xr, xi, p, False, None)
-    yr, yi = yr * scale[..., None, None], yi * scale[..., None, None]
-    rows = fused.symbol_rows(yr, yi, rate, t_off, p)
+    *rows, scale_rows = fused.symbol_rows(yr, yi, rate, t_off, p, scale)
     del yr, yi, xr, xi
-    k = fused.fused_detect_rows(*rows, p)
-    r = fused.fused_detect_rows_reference(*rows, p)
+    k = fused.fused_detect_rows(*rows, p, scale_rows)
+    r = fused.fused_detect_rows_reference(*rows, p, scale_rows)
     max_abs_err = int((k.to(torch.int64) - r.to(torch.int64)).abs().max())
     check(max_abs_err == 0, f"kernel vs twin on the main-path rows: {max_abs_err}")
-    t_kernel = cuda_ms(lambda: fused.fused_detect_rows(*rows, p), iters=10)
-    t_twin = cuda_ms(lambda: fused.fused_detect_rows_reference(*rows, p), iters=10)
+    t_kernel = cuda_ms(lambda: fused.fused_detect_rows(*rows, p, scale_rows), calls=10)
+    t_kernel_one = cuda_ms(lambda: fused.fused_detect_rows(*rows, p, scale_rows), iters=10)
+    t_twin = cuda_ms(lambda: fused.fused_detect_rows_reference(*rows, p, scale_rows),
+                     calls=10)
     n_rows = rows[0].shape[0]
     # least time for the same work: per row, the N-point DFT the function
-    # needs (an FFT: 5 N log2 N flops; the kernel runs it as dense N x N
-    # products, 8 N^2) plus derotation, |.|^2 and the compare (12 N); each
-    # input read once (the rows, start, rate and the two tables), the bins
-    # written once
+    # needs (an FFT: 5 N log2 N flops) plus the scale, derotation, |.|^2
+    # and the compare (14 N); each input read once (the rows, start, rate,
+    # scale and the [N] complex twiddle table), the bins written once
     n = p.n
     log2n = n.bit_length() - 1
-    flops = n_rows * (5 * n * log2n + 12 * n)
-    nbytes = 4 * (2 * n_rows * n + 2 * n_rows + 2 * n * n + n_rows)
+    fft_flops = n_rows * 5 * n * log2n
+    flops = fft_flops + n_rows * 14 * n
+    nbytes = 4 * (2 * n_rows * n + 3 * n_rows + 2 * n + n_rows)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"phase 4: {card}: fused_detect_rows on {n_rows} rows x N={n}: "
-          f"CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s; "
-          f"{8 * n ** 2 * n_rows / t_kernel / 1e9:.2f} TFLOP/s of the dense DFT it runs), "
-          f"plain twin {t_twin:.3f} ms; bins equal; bound {bound_ms:.3f} ms "
-          f"by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B), {bound_ms / t_kernel:.3f} of "
-          f"it; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB",
-          flush=True)
+    print(f"phase 4: {card}: fused_detect_rows on {n_rows} rows x N={n} with the "
+          f"frames' scale: CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s; "
+          f"{fft_flops / t_kernel / 1e9:.2f} TFLOP/s of FFT; one call on an idle card "
+          f"{t_kernel_one:.3f} ms), plain twin {t_twin:.3f} ms; "
+          f"bins equal; bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B), "
+          f"{bound_ms / t_kernel:.3f} of it; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
+
+    # yardstick the port never calls: cuFFT's complex64 DFT alone over
+    # the same rows (no scale, derotation, |.|^2 or argmax)
+    z = torch.complex(rows[0], rows[1])
     del rows
+    t_fft = cuda_ms(lambda: torch.fft.fft(z, dim=-1), calls=10)
+    print(f"phase 4: {card}: torch.fft.fft (cuFFT) over the same {n_rows} x {n} rows as "
+          f"complex64, the DFT alone: {t_fft:.3f} ms ({2 * z.numel() * 8 / t_fft / 1e6:.0f} "
+          f"GB/s read + written)", flush=True)
+    del z
 
     return {"name": "fused_demod", "route": "cuda",
             "source": "lora_phy_tpu_torch/csrc/fused_demod.cu",
@@ -314,7 +343,7 @@ def phase3_4_main_path(dev, card):
             "ms": t_kernel, "plain_ms": t_twin,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes derotate + DFT + |.|^2 + argmax
-            "library_ms": None}
+            "library_ms": None, "cufft_dft_only_ms": t_fft}
 
 
 def block_stream(dev, params, channels, frames):

@@ -9,8 +9,8 @@ mirrors its JAX twin file for file:
   ops/chirp.py        integer-lattice chirp emitter (table gather / trig)
   ops/fft.py          four-step DFT factor tables
   ops/planar.py       planar (re, im) TX, dechirp and demodulation
-  ops/fused_demod.py  the fused derotate + DFT + argmax kernel and its
-                      plain PyTorch twin
+  ops/fused_demod.py  the fused scale + derotate + FFT + argmax kernel's
+                      wrapper and its plain PyTorch twin
   models/modem.py     encode / decode and the complex-input API
   models/stream.py    frame synthesis and the block-wise stream receiver
   models/sync.py      the frame-sync scan and the block receiver

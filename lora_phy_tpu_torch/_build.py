@@ -42,20 +42,17 @@ def find_nvcc() -> str:
         "the CUDA toolkit is needed to build the lora_phy_tpu_torch kernels")
 
 
-def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
-    """Compile ``SOURCES`` into ``LIBRARY`` unless it is newer than every
-    source. Raises ``RuntimeError`` with nvcc's output when it fails."""
-    if (not force and LIBRARY.exists()
-            and all(LIBRARY.stat().st_mtime >= s.stat().st_mtime for s in SOURCES)):
-        return LIBRARY
+def compile_library(sources, library: pathlib.Path, verbose: bool = False) -> pathlib.Path:
+    """Compile ``sources`` with nvcc and ``NVCC_FLAGS`` into ``library``.
+    Raises ``RuntimeError`` with nvcc's output when it fails."""
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    library.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: concurrent processes never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=library.parent)
     os.close(fd)
     cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, SOURCES)]
+           "-o", tmp, *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -64,18 +61,31 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
             f"{proc.stdout}{proc.stderr}")
     if verbose:
         print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    os.replace(tmp, library)
+    return library
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points."""
-    lib = ctypes.CDLL(str(build()))
+def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
+    """Compile ``SOURCES`` into ``LIBRARY`` unless it is newer than every
+    source."""
+    if (not force and LIBRARY.exists()
+            and all(LIBRARY.stat().st_mtime >= s.stat().st_mtime for s in SOURCES)):
+        return LIBRARY
+    return compile_library(SOURCES, LIBRARY, verbose)
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from ``SOURCES``."""
     ptr = ctypes.c_void_p
-    lib.lora_fused_demod.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+    lib.lora_fused_demod.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                      ctypes.c_longlong, ctypes.c_int, ptr]
     lib.lora_fused_demod.restype = ctypes.c_int
     lib.lora_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lora_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    return declare(ctypes.CDLL(str(build())))

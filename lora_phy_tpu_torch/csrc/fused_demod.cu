@@ -1,42 +1,65 @@
-// Fused dechirp-detection kernel for Hopper (sm_90a): per-row CFO
-// derotation, N-point DFT, |.|^2 and first-max argmax, one int32 bin per
-// row. Bound to Python through a plain C interface (ctypes); see
-// lora_phy_tpu_torch/ops/fused_demod.py for the wrapper and the plain
-// PyTorch twin it is checked against.
+// Fused dechirp-detection kernel for Hopper (sm_90a): per-row amplitude
+// scale, CFO derotation, window, N-point FFT, |.|^2 and first-max argmax,
+// one int32 bin per row. Bound to Python through a plain C interface
+// (ctypes); see lora_phy_tpu_torch/ops/fused_demod.py for the wrapper and
+// the plain PyTorch twin it is checked against.
 //
 // Replaces: lora_phy_tpu/ops/pallas_demod.py::_kernel (the Pallas/Mosaic
 // kernel launched by fused_detect_rows), which derotates each row by
 // exp(j*(start + rate*col)), runs the DFT as four real f32 matmuls against
 // resident [N, N] cos / -sin tables with the window folded into the table
-// rows, and takes min(where(mag == rowmax, col, N)).
+// rows, and takes min(where(mag == rowmax, col, N)). The JAX caller
+// multiplies the rows by the per-frame amplitude scale first; here that
+// multiply happens at load.
 //
-// What bounds it on an H100: at the bench shape (8 channels x 8192 frames x
-// 66 symbols = 4.33 M rows of N = 128) the DFT is 8*N^2*B = 5.7e11 f32
-// flops, while the rows are read once (about 4.4 GB) and one int32 per
-// row is written. Without tensor cores this design is held by f32 FMA
-// throughput: ~67 TFLOP/s of f32 gives >= 8.5 ms. The function itself
-// needs only an N-point DFT per row (an FFT: 5*N*log2(N) flops), so its
-// least time is the HBM traffic, 3.35 TB/s giving 1.3 ms (chip_smoke.py
-// phase 4 computes that bound).
+// What bounds it on an H100: at the bench shape (8 channels x 8192 frames
+// x 66 symbols = 4.33 M rows of N = 128) the rows are 4.4 GB, read once,
+// and one int32 per row is written: 1.34 ms at 3.35 TB/s. The FFT is
+// 5 N log2 N = 4,480 flop per row (2.6e10 per call, 0.4 ms at the 67
+// TFLOP/s f32 peak), so the function is bound by bytes; a dense
+// [rows x N] x [N x N] product (8 N^2 flop per row) would instead be held
+// by f32 FMA throughput at >= 8.5 ms.
 //
-// Design (simple and correct first): a block of N threads takes kRows rows.
-// Thread k derotates column k of each row into shared memory (sincosf,
-// full precision: the phase reaches hundreds of radians, where the __sinf
-// intrinsics lose accuracy), then accumulates bin k of all kRows rows in
-// registers in f32 FMA, reading the tables coalesced along k from global
-// memory (L1/L2-resident: 128 KB at N = 128) and the rows as float4
-// broadcasts from shared memory, so each table load feeds kRows rows. The
-// argmax is a warp-shuffle reduction on (value, index) pairs — larger
-// value wins, a tie goes to the smaller index — combined across warps in
-// shared memory: exactly the first maximum. Making it fast is later work:
-// 3xTF32 or a split-precision mma on the tensor cores, or an FFT in shared
-// memory.
+// Design: G = N / 16 threads per row, each holding R = 16 samples at
+// stride G (n = t + G*j), so a warp covers 32 / G rows and every load
+// instruction reads whole 32-byte sectors. With k = k1 + R*k2:
+//   X[k1 + R*k2] = sum_t W_G^(t*k2) * W_N^(t*k1) * sum_j x[t + G*j] W_R^(j*k1)
+// 1. at load: x * scale (rounded on its own), the phase start + rate*n,
+//    full-precision sincosf (the phase reaches hundreds of radians, where
+//    the __sinf intrinsics lose accuracy) and the rotation, all with
+//    __fmul_rn / __fadd_rn so the derotated samples are the same floats as
+//    the twin's; then the window;
+// 2. an R-point radix-2 DIF FFT in registers over j (twiddles W_R);
+// 3. the twiddles W_N^(t*k1);
+// 4. a transpose of (re, im) pairs through shared memory within the warp
+//    (stride 17 pairs per lane: no bank conflicts), after which thread t'
+//    holds k1 = t' + G*m;
+// 5. G-point DIF FFTs in registers over t (twiddles W_G);
+// 6. |.|^2 and the first-max argmax on natural bin indices (the DIF
+//    outputs are bit-reversed; the index map is compile-time), then a
+//    shuffle reduction across the row's G lanes: larger value wins, a tie
+//    goes to the smaller bin.
+// All twiddles come from one [N] complex table built in numpy (double,
+// cast to f32, exact 0 / +-1 at the quarter points), staged in shared
+// memory. Warps walk the rows in a grid-stride loop, two blocks of eight
+// warps per SM, each warp loading its next tile's samples into registers
+// before it computes the current one, so the loads are in flight while
+// the arithmetic runs. What is left above the bytes is instruction issue:
+// sincosf (~25 instructions a sample, kept for bit-equal derotation) and
+// the FFT. The kernel is instantiated with and without the window, so
+// the main path (no window) issues none of its loads and multiplies; an
+// absent scale is a scale of 1, which leaves every sample as it is.
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 16;  // rows per block
+constexpr int kR = 16;        // samples (and bins) per thread
+constexpr int kLaneStride = kR + 1;
+constexpr int kWarps = 8;     // warps per block
+constexpr int kThreads = 32 * kWarps;
 
 __device__ __forceinline__ void take_max(float& m, int& idx, float om, int oi) {
   if (om > m || (om == m && oi < idx)) {
@@ -45,129 +68,295 @@ __device__ __forceinline__ void take_max(float& m, int& idx, float om, int oi) {
   }
 }
 
-template <int N>
-__global__ void __launch_bounds__(N)
-fused_demod_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                   const float* __restrict__ start,
-                   const float* __restrict__ rate,
-                   const float* __restrict__ wr, const float* __restrict__ wi,
-                   int* __restrict__ out, long long rows) {
-  static_assert(N % 32 == 0 && N >= kRows, "N must be a multiple of 32");
-  constexpr int kWarps = N / 32;
-  __shared__ __align__(16) float sfr[kRows][N];
-  __shared__ __align__(16) float sfi[kRows][N];
-  __shared__ float warp_max[kRows][kWarps];
-  __shared__ int warp_idx[kRows][kWarps];
+__host__ __device__ constexpr int bit_reverse(int v, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((v >> b) & 1) << (bits - 1 - b);
+  return r;
+}
 
-  const int k = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+__host__ __device__ constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v >> 1); }
 
-  // 1. derotation: thread k forms column k of every row. Rounded
-  // operations (no FMA contraction) so the phase and the derotated
-  // samples are the same floats as the plain twin's.
+// One stage of an M-point radix-2 decimation-in-frequency FFT over
+// re/im[OFF .. OFF+M): butterflies HALF apart, then the next stage. Every
+// index is a compile-time constant, so the arrays stay in registers.
+// w[e] = W_M^e = (cos, -sin)(2*pi*e/M) for e < M/2.
+template <int M, int HALF, int OFF, int LEN>
+__device__ __forceinline__ void dif_stage(float (&re)[LEN], float (&im)[LEN],
+                                          const float2 (&w)[M / 2]) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const long long row = row0 + r;
-    float fr = 0.f, fi = 0.f;
-    if (row < rows) {
-      const float ph = __fadd_rn(start[row], __fmul_rn(rate[row], static_cast<float>(k)));
-      float s, c;
-      sincosf(ph, &s, &c);
-      const float a = xr[row * N + k];
-      const float b = xi[row * N + k];
-      fr = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s));
-      fi = __fadd_rn(__fmul_rn(a, s), __fmul_rn(b, c));
+  for (int blk = 0; blk < M / (2 * HALF); ++blk) {
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const int a = OFF + 2 * HALF * blk + i;
+      const int b = a + HALF;
+      const int e = i * (M / (2 * HALF));
+      const float dr = re[a] - re[b];
+      const float di = im[a] - im[b];
+      re[a] += re[b];
+      im[a] += im[b];
+      if (e == 0) {
+        re[b] = dr;
+        im[b] = di;
+      } else if (4 * e == M) {  // W = -j, exactly
+        re[b] = di;
+        im[b] = -dr;
+      } else {
+        re[b] = dr * w[e].x - di * w[e].y;
+        im[b] = dr * w[e].y + di * w[e].x;
+      }
     }
-    sfr[r][k] = fr;
-    sfi[r][k] = fi;
+  }
+  if constexpr (HALF > 1) dif_stage<M, HALF / 2, OFF, LEN>(re, im, w);
+}
+
+// In-place M-point radix-2 DIF FFT over re/im[OFF .. OFF+M) with natural
+// input order; output position p holds bin bit_reverse(p).
+template <int M, int OFF, int LEN>
+__device__ __forceinline__ void fft_dif(float (&re)[LEN], float (&im)[LEN],
+                                        const float2 (&w)[M / 2]) {
+  dif_stage<M, M / 2, OFF, LEN>(re, im, w);
+}
+
+// fft_dif over each of the K consecutive M-point groups of re/im.
+template <int M, int K, int LEN>
+__device__ __forceinline__ void fft_each(float (&re)[LEN], float (&im)[LEN],
+                                         const float2 (&w)[M / 2]) {
+  if constexpr (K > 0) {
+    fft_each<M, K - 1, LEN>(re, im, w);
+    fft_dif<M, (K - 1) * M, LEN>(re, im, w);
+  }
+}
+
+template <int N, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_demod_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   const float* __restrict__ start, const float* __restrict__ rate,
+                   const float* __restrict__ scale, const float* __restrict__ window,
+                   const float2* __restrict__ twiddle, int* __restrict__ out,
+                   long long rows) {
+  constexpr int G = N / kR;        // threads per row
+  constexpr int kRowsPerWarp = 32 / G;
+  constexpr int kM = kR / G;       // G-point transforms per thread in step 5
+  static_assert(N % kR == 0 && G >= 2 && G <= 32 && 32 % G == 0, "N in 32 / 64 / 128");
+
+  __shared__ float2 tw_s[N];
+  __shared__ float win_s[N];
+  __shared__ float2 buf[kWarps][32 * kLaneStride];
+
+  for (int i = threadIdx.x; i < N; i += kThreads) {
+    tw_s[i] = twiddle[i];
+    if (kWindow) win_s[i] = window[i];
   }
   __syncthreads();
 
-  // 2. DFT: bin k of every row, zr = sum fr*wr - fi*wi, zi = sum fr*wi + fi*wr
-  float zr[kRows], zi[kRows];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane / G;          // row within the warp's tile
+  const int t = lane % G;          // thread within the row
+  const float t_f = static_cast<float>(t);
+
+  float2 w_r[kR / 2];              // W_R^e
+  float2 w_g[G / 2];               // W_G^e
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    zr[r] = 0.f;
-    zi[r] = 0.f;
-  }
-  for (int i = 0; i < N; i += 4) {
-    float w_r[4], w_i[4];
+  for (int e = 0; e < kR / 2; ++e) w_r[e] = tw_s[e * G];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w_r[j] = __ldg(wr + (i + j) * N + k);
-      w_i[j] = __ldg(wi + (i + j) * N + k);
-    }
+  for (int e = 0; e < G / 2; ++e) w_g[e] = tw_s[e * kR];
+
+  float2* my_buf = buf[warp];
+  const long long tiles = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  const long long warp_stride = static_cast<long long>(gridDim.x) * kWarps;
+
+  // the raw samples of the warp's next tile, loaded one tile ahead so
+  // that the loads are in flight while the current tile computes
+  float next_r[kR], next_i[kR];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&sfr[r][i]);
-      const float4 b = *reinterpret_cast<const float4*>(&sfi[r][i]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+  for (int j = 0; j < kR; ++j) next_r[j] = next_i[j] = 0.0f;
+  long long tile = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  {
+    const long long row = tile * kRowsPerWarp + g;
+    if (row < rows) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        zr[r] = fmaf(av[j], w_r[j], zr[r]);
-        zr[r] = fmaf(-bv[j], w_i[j], zr[r]);
-        zi[r] = fmaf(av[j], w_i[j], zi[r]);
-        zi[r] = fmaf(bv[j], w_r[j], zi[r]);
+      for (int j = 0; j < kR; ++j) {
+        next_r[j] = __ldg(xr + row * N + t + G * j);
+        next_i[j] = __ldg(xi + row * N + t + G * j);
       }
     }
   }
 
-  // 3. first-max argmax of |z|^2 per row: within each warp, then across warps
-  const int lane = k & 31;
-  const int warp = k >> 5;
+  for (; tile < tiles; tile += warp_stride) {
+    const long long row = tile * kRowsPerWarp + g;
+    const bool live = row < rows;
+    // a row past the end keeps the previous tile's finite samples: its
+    // bin is computed and not written
+    float re[kR], im[kR];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float m = zr[r] * zr[r] + zi[r] * zi[r];
-    int idx = k;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float om = __shfl_down_sync(0xffffffffu, m, off);
-      const int oi = __shfl_down_sync(0xffffffffu, idx, off);
-      take_max(m, idx, om, oi);
+    for (int j = 0; j < kR; ++j) {
+      re[j] = next_r[j];
+      im[j] = next_i[j];
     }
-    if (lane == 0) {
-      warp_max[r][warp] = m;
-      warp_idx[r][warp] = idx;
-    }
-  }
-  __syncthreads();
-  if (k < kRows && row0 + k < rows) {
-    float m = warp_max[k][0];
-    int idx = warp_idx[k][0];
+    const long long next_row = row + warp_stride * kRowsPerWarp;
+    if (next_row < rows) {
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) take_max(m, idx, warp_max[k][w], warp_idx[k][w]);
-    out[row0 + k] = idx;
+      for (int j = 0; j < kR; ++j) {
+        next_r[j] = __ldg(xr + next_row * N + t + G * j);
+        next_i[j] = __ldg(xi + next_row * N + t + G * j);
+      }
+    }
+
+    // 1. scale, derotate, window: sample n = t + G*j
+    if (live) {
+      const float st = start[row];
+      const float rt = rate[row];
+      const float sc = scale != nullptr ? scale[row] : 1.0f;
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        // x * scale rounded on its own, as torch's yr * scale
+        const float a = __fmul_rn(re[j], sc);
+        const float b = __fmul_rn(im[j], sc);
+        // n = t + G*j as a float, exactly (t_f + G*j is an integer < 2^24)
+        const float ph = __fadd_rn(st, __fmul_rn(rt, t_f + static_cast<float>(G * j)));
+        float s, c;
+        sincosf(ph, &s, &c);
+        float fr = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s));
+        float fi = __fadd_rn(__fmul_rn(a, s), __fmul_rn(b, c));
+        if (kWindow) {
+          const float w = win_s[t + G * j];
+          fr = __fmul_rn(fr, w);
+          fi = __fmul_rn(fi, w);
+        }
+        re[j] = fr;
+        im[j] = fi;
+      }
+    }
+
+    // 2. R-point FFT over j; position p holds k1 = bit_reverse(p)
+    fft_dif<kR, 0, kR>(re, im, w_r);
+
+    // 3. twiddles W_N^(t*k1), and 4. the transpose: lane writes k1 in
+    // natural order at lane*17 + k1
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < kR; ++p) {
+      constexpr int kBits = log2i(kR);
+      const int k1 = bit_reverse(p, kBits);
+      float vr = re[p], vi = im[p];
+      if (k1 != 0) {
+        const float2 w = tw_s[t * k1];
+        const float r2 = vr * w.x - vi * w.y;
+        vi = vr * w.y + vi * w.x;
+        vr = r2;
+      }
+      my_buf[lane * kLaneStride + k1] = make_float2(vr, vi);
+    }
+    __syncwarp();
+    // thread t' now takes k1 = t' + G*m (m < kM) from the row's G lanes
+    float ur[kR], ui[kR];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+#pragma unroll
+      for (int src = 0; src < G; ++src) {
+        const float2 v = my_buf[(g * G + src) * kLaneStride + t + G * m];
+        ur[m * G + src] = v.x;
+        ui[m * G + src] = v.y;
+      }
+    }
+
+    // 5. G-point FFTs over t; position m*G + p holds k2 = bit_reverse(p)
+    fft_each<G, kM, kR>(ur, ui, w_g);
+
+    // 6. |.|^2 and the first-max argmax on natural bins k1 + R*k2
+    float best = ur[0] * ur[0] + ui[0] * ui[0];
+    int best_k = t;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+#pragma unroll
+      for (int p = 0; p < G; ++p) {
+        constexpr int kBits = log2i(G);
+        const int k = t + G * m + kR * bit_reverse(p, kBits);
+        const float vr = ur[m * G + p], vi = ui[m * G + p];
+        if (m + p > 0) take_max(best, best_k, vr * vr + vi * vi, k);
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off >= 1; off >>= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, best, off);
+      const int ok = __shfl_xor_sync(0xffffffffu, best_k, off);
+      take_max(best, best_k, om, ok);
+    }
+    if (live && t == 0) out[row] = best_k;
   }
 }
 
+// Blocks of fused_demod_kernel<N, kWindow> resident on the current
+// device's SMs at once, queried once per device and kept.
+template <int N, bool kWindow>
+cudaError_t resident_blocks(long long* blocks) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<long long> cache[kMaxDevices];  // 0: not queried yet
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices) {
+    *blocks = cache[device].load(std::memory_order_relaxed);
+    if (*blocks > 0) return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_demod_kernel<N, kWindow>,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (device < kMaxDevices) cache[device].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+template <int N, bool kWindow>
+int launch_variant(const float* xr, const float* xi, const float* start, const float* rate,
+                   const float* scale, const float* window, const float2* twiddle, int* out,
+                   long long rows, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kWarps * 32 / (N / kR);
+  long long resident = 0;
+  const cudaError_t err = resident_blocks<N, kWindow>(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long needed = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const long long blocks = needed < resident ? needed : resident;
+  fused_demod_kernel<N, kWindow><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      xr, xi, start, rate, scale, window, twiddle, out, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int N>
-void launch(const float* xr, const float* xi, const float* start, const float* rate,
-            const float* wr, const float* wi, int* out, long long rows,
-            cudaStream_t stream) {
-  const long long blocks = (rows + kRows - 1) / kRows;
-  fused_demod_kernel<N><<<static_cast<unsigned>(blocks), N, 0, stream>>>(
-      xr, xi, start, rate, wr, wi, out, rows);
+int launch(const float* xr, const float* xi, const float* start, const float* rate,
+           const float* scale, const float* window, const float2* twiddle, int* out,
+           long long rows, cudaStream_t stream) {
+  if (window != nullptr)
+    return launch_variant<N, true>(xr, xi, start, rate, scale, window, twiddle, out, rows,
+                                   stream);
+  return launch_variant<N, false>(xr, xi, start, rate, scale, window, twiddle, out, rows,
+                                  stream);
 }
 
 }  // namespace
 
-// xr, xi: [rows, n] f32; start, rate: [rows] f32; wr, wi: [n, n] f32 (the
-// window folded into the rows); out: [rows] int32. Launches on `stream` and
-// returns cudaGetLastError() (0 on success); does not synchronise.
+// xr, xi: [rows, n] f32; start, rate: [rows] f32; scale: [rows] f32 or
+// null (no amplitude scale); window: [n] f32 or null; twiddle: [n]
+// complex f32 (cos, -sin)(2*pi*m/n); out: [rows] int32. Launches on
+// `stream` and returns the CUDA error code (0 on success); does not
+// synchronise.
 extern "C" int lora_fused_demod(const float* xr, const float* xi, const float* start,
-                                const float* rate, const float* wr, const float* wi,
-                                int* out, long long rows, int n, void* stream) {
+                                const float* rate, const float* scale, const float* window,
+                                const float* twiddle, int* out, long long rows, int n,
+                                void* stream) {
   if (rows <= 0) return 0;
-  if ((rows + kRows - 1) / kRows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* tw = reinterpret_cast<const float2*>(twiddle);
   switch (n) {
-    case 32: launch<32>(xr, xi, start, rate, wr, wi, out, rows, s); break;
-    case 64: launch<64>(xr, xi, start, rate, wr, wi, out, rows, s); break;
-    case 128: launch<128>(xr, xi, start, rate, wr, wi, out, rows, s); break;
+    case 32: return launch<32>(xr, xi, start, rate, scale, window, tw, out, rows, s);
+    case 64: return launch<64>(xr, xi, start, rate, scale, window, tw, out, rows, s);
+    case 128: return launch<128>(xr, xi, start, rate, scale, window, tw, out, rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* lora_cuda_error_string(int code) {

@@ -399,11 +399,10 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     )
 
     if fused:
-        if scale is not None:
-            yr = yr * scale[..., None, None]
-            yi = yi * scale[..., None, None]
+        # the kernel multiplies by ``scale`` at load: the same floats as
+        # the JAX path's ``yr * scale``, without materialising it
         from .fused_demod import fused_demod
-        syms = fused_demod(yr, yi, rate, t_off, params)
+        syms = fused_demod(yr, yi, rate, t_off, params, scale)
     else:
         fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
         syms = argmax_bins_planar(fr, fi, params.n)
