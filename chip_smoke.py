@@ -38,8 +38,32 @@ Imports no JAX. Phases, one line each (or a few):
    phase-5 channel in fixed blocks, every frame once at its true start;
 7. the block receiver on the card against the same call on the CPU
    (2 channels x 16 frames): equal found / start / cfo_bins / symbols /
-   sync.
+   sync;
+8. the coded main path (explicit-header chain's payload coding: CRC16,
+   whitening, CR 4/5 parity, interleaving) at the headline width: 8
+   channels x 8192 frames of 32-byte payloads, 50 coded symbols each
+   (436 M IQ samples), encode_payload -> modulate_planar ->
+   dechirp_planar -> demodulate_planar(fused=True) -> decode_payload
+   through the kernel; every payload bit-exact, crc_ok, fec_errors 0,
+   sync 0x12, fused=False the same symbols; then CR 4/6-4/8 and LDRO at
+   1 x 1024 frames; decode_payload_soft on one channel's spectra (its
+   peak memory); CUDA-event times of encode_payload, decode_payload and
+   decode_payload_soft;
+9. the gateway stream: AdaptiveStreamDemodulator, hard and soft, over
+   256 frame_encode frames (lengths 1-255, CR 1-4, CRC on and off, gaps
+   of 0-3 symbols) of one SF7 channel in blocks of 65,536 samples, every
+   frame once at its true start with its length, CR, CRC flag and bytes;
+   frames/s and host seconds per frame; a profile of one block; then 8
+   SF12 LDRO frames in blocks of 1 << 20;
+10. soft vs hard under AWGN (the first 64 frames of phase 9 at
+   PHASE10_SNR_DB): soft decodes at least as many CRC-clean frames, no
+   wrong frame passes its CRC; the adaptive receiver on the card against
+   the CPU on a 16-frame prefix; the block receiver's soft path
+   (receive_block_planar with spectra -> hamming84_ml_decode) on phase
+   5's stream.
 
+Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
+again for every frame, as the JAX twin's): 15-20 s of host time.
 Then a JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
@@ -54,7 +78,7 @@ import numpy as np
 import torch
 
 from lora_phy_tpu_torch import LoraParams, Window, _build
-from lora_phy_tpu_torch.models import modem, stream, sync
+from lora_phy_tpu_torch.models import coded, modem, soft, stream, sync
 from lora_phy_tpu_torch.ops import fused_demod as fused
 from lora_phy_tpu_torch.ops import planar
 
@@ -63,6 +87,11 @@ NEAR_TIE_REL = 1e-5
 # bench.py's block-receive workload: frames per channel, payload bytes,
 # zero windows after each frame
 BLOCK_FRAMES, BLOCK_PAYLOAD, BLOCK_GAP = 512, 16, 4
+# the gateway path: frames of the adaptive stream, per-channel frames at
+# reduced width, the stream's block size, the phase 10 SNR (per sample,
+# dB: the hard receiver loses ~28 % of the 64 frames there)
+GATEWAY_FRAMES, CODED_SMALL_FRAMES, GATEWAY_BLOCK = 256, 1024, 65536
+PHASE10_FRAMES, PHASE10_SNR_DB, PHASE10_CPU_FRAMES = 64, -8.5, 16
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor
 # cores, HBM bandwidth
 PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -227,8 +256,15 @@ def main():
     xr, xi, pay = phase5_block_receiver(dev, card)
     phase6_barrel_and_stream(dev, xr, xi, pay)
     phase7_card_vs_cpu(dev, xr, xi)
+    torch.cuda.empty_cache()
+    coded_launches = phase8_coded_main_path(dev, card)
+    torch.cuda.empty_cache()
+    sig, truth = phase9_gateway_stream(dev, card)
+    phase10_noise_and_soft(dev, card, sig, truth, xr, xi, pay)
 
     check("jax" not in sys.modules, "the port imported JAX")
+    record["launches_by_path"] = {"main": record["launches"], "coded": coded_launches}
+    record["launches"] += coded_launches
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -472,6 +508,248 @@ def phase7_card_vs_cpu(dev, xr, xi):
     print(f"phase 7: receive_block_planar on 2 x {xr.shape[-1]} samples: found, "
           f"start, cfo_bins, symbols, sync equal on the card and the CPU "
           f"({int(cpu.found.sum())} frames)", flush=True)
+
+
+def coded_chain(dev, cfg, channels, frames, seed):
+    """encode_payload -> modulate_planar -> dechirp_planar of random
+    payloads [channels, frames, PAYLOAD_LEN]; returns the payloads, the
+    coded symbols and the dechirped planes."""
+    p = LoraParams(sf=cfg.sf)
+    full = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, (channels, frames, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    syms = coded.encode_payload(full, cfg)
+    re, im = planar.modulate_planar(syms, p)
+    xr, xi = planar.dechirp_planar(re, im, p)
+    return full, syms, xr, xi
+
+
+def check_coded(res, full, cfg, label):
+    """Every frame's payload bit-exact, crc_ok, fec_errors 0, sync 0x12."""
+    payload, crc_ok, fec = coded.decode_payload(res.symbols, PAYLOAD_LEN, cfg)
+    check(torch.equal(payload, full), f"{label}: decoded payloads differ")
+    check(bool(crc_ok.all()), f"{label}: {int((~crc_ok).sum())} frames fail their CRC")
+    check(int(fec.sum()) == 0, f"{label}: {int(fec.sum())} codewords flagged by the FEC")
+    check(bool((res.sync_word == 0x12).all()), f"{label}: sync word is not 0x12")
+
+
+def phase8_coded_main_path(dev, card):
+    """The coded main path through the kernel; returns its launches."""
+    p = LoraParams(sf=7)
+    cfg = coded.CodedConfig(sf=7, cr=1)
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    full, syms, xr, xi = coded_chain(dev, cfg, CHANNELS, FRAMES, seed=8)
+    res = planar.demodulate_planar(xr, xi, p, fused=True)
+    check_coded(res, full, cfg, "phase 8")
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    nsym = coded.payload_symbol_count(PAYLOAD_LEN, cfg)
+    check(tuple(syms.shape) == (CHANNELS, FRAMES, nsym), f"coded symbols {tuple(syms.shape)}")
+    check(launches > 0, "the coded main path did not launch the fused kernel")
+    total = xr.numel()
+    print(f"phase 8: coded main path, CR 4/5 + CRC16 + whitening: {CHANNELS * FRAMES} "
+          f"frames of {PAYLOAD_LEN} bytes ({nsym} coded symbols + 2 sync, "
+          f"{total / 1e6:.1f} M IQ samples) decoded bit-exact through fused=True, crc_ok "
+          f"and fec_errors 0 everywhere, sync 0x12; kernel launches {launches}", flush=True)
+    plain = planar.demodulate_planar(xr, xi, p, fused=False)
+    check(torch.equal(plain.symbols, res.symbols), "phase 8: fused=False symbols differ")
+    t_enc = cuda_ms(lambda: coded.encode_payload(full, cfg))
+    t_dec = cuda_ms(lambda: coded.decode_payload(res.symbols, PAYLOAD_LEN, cfg))
+    t_fused = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, fused=True))
+    print(f"phase 8: {card}: encode_payload {t_enc:.3f} ms, decode_payload {t_dec:.3f} ms "
+          f"({CHANNELS * FRAMES / t_dec / 1e3:.2f} M frames/s), demodulate_planar(fused=True) "
+          f"{t_fused:.3f} ms ({total / t_fused / 1e6:.3f} Gsamples/s); fused=False gives the "
+          f"same symbols", flush=True)
+
+    # soft decoding of one channel from its |DFT|^2 spectra
+    mag2 = planar.demodulate_spectrum_planar(xr[0], xi[0], p)[0]
+    del xr, xi, plain
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    payload, crc_ok, margin = soft.decode_payload_soft(mag2, PAYLOAD_LEN, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(payload, full[0]), "phase 8 soft: decoded payloads differ")
+    check(bool(crc_ok.all()) and bool((margin > 0).all()), "phase 8 soft: crc or margin")
+    t_soft = cuda_ms(lambda: soft.decode_payload_soft(mag2, PAYLOAD_LEN, cfg))
+    print(f"phase 8: {card}: decode_payload_soft on {FRAMES} frames' spectra "
+          f"{tuple(mag2.shape)}: bytes and crc_ok equal to the payloads, {t_soft:.3f} ms, "
+          f"peak memory above its inputs {peak / 2 ** 30:.2f} GiB (bin_llrs' "
+          f"[frames, S, ppm, N] temporary)", flush=True)
+    del mag2, res
+
+    for cr, ldro in ((2, False), (3, False), (4, False), (1, True)):
+        cfg = coded.CodedConfig(sf=7, cr=cr, ldro=ldro)
+        full, syms, xr, xi = coded_chain(dev, cfg, 1, CODED_SMALL_FRAMES, seed=80 + cr)
+        res = planar.demodulate_planar(xr, xi, p, fused=True)
+        label = f"phase 8 CR 4/{4 + cr}{' LDRO' if ldro else ''}"
+        check_coded(res, full, cfg, label)
+        plain = planar.demodulate_planar(xr, xi, p, fused=False)
+        check(torch.equal(plain.symbols, res.symbols), f"{label}: fused=False differs")
+        print(f"{label}: 1 x {CODED_SMALL_FRAMES} frames ({syms.shape[-1]} symbols) "
+              f"bit-exact, crc_ok, fec_errors 0, sync 0x12, fused=False equal", flush=True)
+    return launches
+
+
+def gateway_stream(dev, p, count, max_len, seed, ldro=False):
+    """One channel of ``count`` frame_encode frames after 313 zero
+    samples: payload lengths drawn from 1..max_len (the first two 1 and
+    max_len), CR cycling 1-4, CRC on for even frames, 0-3 zero symbols
+    after each frame. Returns the complex64 stream and the true
+    (start, payload bytes, cr, crc) of every frame."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(1, max_len + 1, count)
+    lengths[:2] = 1, max_len
+    lead = 313
+    parts, truth, pos = [torch.zeros(lead, dtype=torch.complex64, device=dev)], [], lead
+    for k in range(count):
+        cr, crc = 1 + k % 4, k % 2 == 0
+        payload = rng.randint(0, 256, lengths[k]).astype(np.uint8)
+        iq = stream.frame_encode(payload, coded.CodedConfig(sf=p.sf, cr=cr, crc=crc, ldro=ldro),
+                                 p, device=dev)
+        gap = int(rng.randint(0, 4)) * p.step
+        truth.append((pos, payload.tobytes(), cr, crc))
+        parts += [iq, torch.zeros(gap, dtype=torch.complex64, device=dev)]
+        pos += iq.numel() + gap
+    parts.append(torch.zeros(4 * p.step, dtype=torch.complex64, device=dev))
+    return torch.cat(parts), truth
+
+
+def run_adaptive(sig, p, block, soft_mode, ldro=False, device=None):
+    """AdaptiveStreamDemodulator over ``sig`` in blocks; returns the
+    frames and the host seconds."""
+    demod = stream.AdaptiveStreamDemodulator(p, soft=soft_mode, ldro=ldro,
+                                             device=device or sig.device)
+    st, got = demod.init_state(), []
+    t0 = time.perf_counter()
+    for off in range(0, sig.numel(), block):
+        st, out = demod.process(st, sig[off:off + block])
+        got.extend(out)
+    return got, time.perf_counter() - t0
+
+
+def check_gateway(got, truth, label):
+    """Every frame reported once, at its true start, with its length, CR,
+    CRC flag and bytes, header_ok, and crc_ok where CRC is on."""
+    rows = [(g[0], g[1], g[2]["cr"], g[2]["crc"]) for g in got]
+    bad = [k for k, (r, t) in enumerate(zip(rows, truth)) if r != t]
+    check(len(rows) == len(truth) and not bad,
+          f"{label}: {len(rows)} frames reported for {len(truth)}; first mismatch "
+          f"{bad[:1] or 'count'}")
+    check(all(g[2]["header_ok"] and g[2]["length"] == len(g[1]) for g in got),
+          f"{label}: header fields differ")
+    check(all(g[2]["crc_ok"] for g in got if g[2]["crc"]), f"{label}: a CRC failed")
+
+
+def phase9_gateway_stream(dev, card):
+    """The adaptive receiver (hard and soft) over the SF7 gateway stream
+    and over SF12 LDRO frames; returns the SF7 stream and its truth."""
+    p = LoraParams(sf=7)
+    sig, truth = gateway_stream(dev, p, GATEWAY_FRAMES, 255, seed=9)
+    for soft_mode in (False, True):
+        got, dt = run_adaptive(sig, p, GATEWAY_BLOCK, soft_mode)
+        label = f"phase 9 {'soft' if soft_mode else 'hard'}"
+        check_gateway(got, truth, label)
+        print(f"{label}: {card}: AdaptiveStreamDemodulator over {sig.numel()} SF7 samples in "
+              f"blocks of {GATEWAY_BLOCK}: all {len(got)} frames once at their true starts, "
+              f"lengths 1-255, CR 4/5-4/8, CRC on/off, bytes exact; {dt:.2f} s host clock, "
+              f"{len(got) / dt:.1f} frames/s, {dt / len(got) * 1e3:.2f} ms host per frame",
+              flush=True)
+    # where a block's host time goes: one block from mid-stream, replayed
+    # from the same carry (process() is a function of state and block)
+    demod = stream.AdaptiveStreamDemodulator(p, device=dev)
+    st = demod.init_state()
+    for off in range(0, 8 * GATEWAY_BLOCK, GATEWAY_BLOCK):
+        st, _ = demod.process(st, sig[off:off + GATEWAY_BLOCK])
+    block = sig[8 * GATEWAY_BLOCK: 9 * GATEWAY_BLOCK]
+    n_frames = len(demod.process(st, block)[1])
+    profile_once(lambda: demod.process(st, block),
+                 f"phase 9: {card}: AdaptiveStreamDemodulator.process, one block of "
+                 f"{GATEWAY_BLOCK} samples ({n_frames} frames)")
+    p12 = LoraParams(sf=12)
+    sig12, truth12 = gateway_stream(dev, p12, 8, 64, seed=12, ldro=True)
+    for soft_mode in (False, True):
+        got, dt = run_adaptive(sig12, p12, 1 << 20, soft_mode, ldro=True)
+        label = f"phase 9 SF12 LDRO {'soft' if soft_mode else 'hard'}"
+        check_gateway(got, truth12, label)
+        print(f"{label}: {card}: {len(got)} frames of 1-64 bytes over {sig12.numel()} samples "
+              f"in blocks of {1 << 20}: all once at their true starts, bytes exact; "
+              f"{dt:.2f} s host clock, {dt / len(got) * 1e3:.1f} ms per frame", flush=True)
+    return sig, truth
+
+
+def awgn(sig, snr_db, seed):
+    """``sig`` plus numpy-seeded complex AWGN at ``snr_db`` per sample."""
+    rng = np.random.RandomState(seed)
+    sigma = np.sqrt(10.0 ** (-snr_db / 10.0) / 2.0)
+    noise = (sigma * (rng.randn(sig.numel()) + 1j * rng.randn(sig.numel()))).astype(np.complex64)
+    return sig + torch.from_numpy(noise).to(sig.device)
+
+
+def same_frames(a, b, label):
+    """Equal (start, bytes, info) lists; soft_margin within 1e-4 relative
+    (plus 1e-4 absolute for margins near zero)."""
+    check(len(a) == len(b), f"{label}: {len(a)} frames against {len(b)}")
+    for (s, pay, info), (rs, rpay, rinfo) in zip(a, b):
+        info, rinfo = dict(info), dict(rinfo)
+        m, rm = info.pop("soft_margin", 0.0), rinfo.pop("soft_margin", 0.0)
+        check((s, pay, info) == (rs, rpay, rinfo), f"{label}: frame at {s} differs")
+        check(abs(m - rm) <= 1e-4 * abs(rm) + 1e-4, f"{label}: soft_margin {m} vs {rm}")
+
+
+def phase10_noise_and_soft(dev, card, sig, truth, xr5, xi5, pay5):
+    """Soft vs hard under AWGN, card vs CPU, and the block receiver's
+    soft path."""
+    p = LoraParams(sf=7)
+    end = truth[PHASE10_FRAMES][0]
+    tail = torch.zeros(4 * p.step, dtype=torch.complex64, device=dev)
+    noisy = awgn(torch.cat([sig[:end], tail]), PHASE10_SNR_DB, seed=10)
+    tmap = {t[0]: t for t in truth[:PHASE10_FRAMES]}
+    counts = {}
+    for soft_mode in (False, True):
+        got, dt = run_adaptive(noisy, p, GATEWAY_BLOCK, soft_mode)
+        right = [g for g in got if g[0] in tmap and tmap[g[0]][1] == g[1]]
+        clean = [g for g in got if g[2]["crc"] and g[2]["crc_ok"]]
+        wrong_pass = [g[0] for g in clean if g not in right]
+        label = f"phase 10 {'soft' if soft_mode else 'hard'}"
+        check(not wrong_pass, f"{label}: frames at {wrong_pass} pass the CRC with wrong bytes")
+        counts[soft_mode] = len(clean)
+        lost = PHASE10_FRAMES - len(right)
+        print(f"{label}: {PHASE10_FRAMES} frames at {PHASE10_SNR_DB} dB SNR: {len(got)} "
+              f"reported, {len(right)} bit-exact, {lost} lost ({lost / PHASE10_FRAMES:.0%}), "
+              f"{len(clean)} CRC-clean, none wrong with crc_ok; {dt:.2f} s host", flush=True)
+        if not soft_mode:
+            check(0.05 <= lost / PHASE10_FRAMES <= 0.5,
+                  f"{label}: the hard receiver loses {lost} frames, outside 5-50 %")
+    check(counts[True] >= counts[False],
+          f"phase 10: soft {counts[True]} CRC-clean frames < hard {counts[False]}")
+
+    prefix = noisy[: truth[PHASE10_CPU_FRAMES][0]]
+    for soft_mode in (False, True):
+        on_card, dt_card = run_adaptive(prefix, p, GATEWAY_BLOCK, soft_mode)
+        on_cpu, dt_cpu = run_adaptive(prefix.cpu(), p, GATEWAY_BLOCK, soft_mode)
+        label = f"phase 10 card vs CPU {'soft' if soft_mode else 'hard'}"
+        same_frames(on_card, on_cpu, label)
+        print(f"{label}: {PHASE10_CPU_FRAMES}-frame noisy prefix: equal frame lists "
+              f"({len(on_cpu)} frames); host clock: card {dt_card:.2f} s, the machine's "
+              f"CPU {dt_cpu:.2f} s", flush=True)
+
+    # the block receiver's soft path (lora-rx-stream --soft)
+    n_pay = 2 * BLOCK_PAYLOAD
+    blk, spectra = sync.receive_block_planar(xr5, xi5, p, n_pay, max_frames=BLOCK_FRAMES,
+                                             min_power_db=-30.0, with_spectra=True)
+    decoded = soft.hamming84_ml_decode(spectra)
+    ok = (decoded == pay5[:, None, :]).all(-1)
+    n_found = int(blk.found.sum())
+    check(n_found >= CHANNELS * (BLOCK_FRAMES - 1) and bool(ok[blk.found].all()),
+          f"phase 10 block soft: {n_found} found, {int((~ok[blk.found]).sum())} differ")
+    t_rx = cuda_ms(lambda: sync.receive_block_planar(
+        xr5, xi5, p, n_pay, max_frames=BLOCK_FRAMES, min_power_db=-30.0, with_spectra=True))
+    t_ml = cuda_ms(lambda: soft.hamming84_ml_decode(spectra))
+    print(f"phase 10: {card}: block receiver soft path on phase 5's stream: {n_found} frames "
+          f"found, all bit-exact through hamming84_ml_decode; receive_block_planar("
+          f"with_spectra=True) {t_rx:.3f} ms, hamming84_ml_decode {t_ml:.3f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -5,14 +5,21 @@ to PyTorch, with the one Pallas kernel of the JAX package rewritten by
 hand in CUDA C++ for Hopper (``csrc/fused_demod.cu``). Every function
 mirrors its JAX twin file for file:
 
-  ops/coding.py       Hamming 8/4, Gray, nibbles, SX1272 CRC16
+  ops/coding.py       the coding primitives: Hamming 8/4 and 7/4, parity
+                      5/4 and 6/4, Gray, nibbles, bit pack, whiteners,
+                      SX1272 CRC16, checksums, diagonal interleavers
   ops/chirp.py        integer-lattice chirp emitter (table gather / trig)
+                      and the complex modulate_symbols / base_downchirp
   ops/fft.py          four-step DFT factor tables
   ops/planar.py       planar (re, im) TX, dechirp and demodulation
   ops/fused_demod.py  the fused scale + derotate + FFT + argmax kernel's
                       wrapper and its plain PyTorch twin
   models/modem.py     encode / decode and the complex-input API
-  models/stream.py    frame synthesis and the block-wise stream receiver
+  models/coded.py     the coded chain (CRC, whitening, FEC, interleaving,
+                      Gray) and the explicit header
+  models/soft.py      soft decoding: max-log LLRs, ML codeword decoding
+  models/stream.py    frame synthesis, frame sync, the serial and adaptive
+                      (header-driven) receivers, the block-wise receiver
   models/sync.py      the frame-sync scan and the block receiver
   utils/params.py     LoraParams, Window, Bandwidth (the port's own copy)
 

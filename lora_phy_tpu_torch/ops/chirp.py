@@ -6,7 +6,9 @@ closed form reduced mod ``P`` in integer arithmetic).
 
 The NumPy builders (``_lattice_period``, ``gen_chirp_np``,
 ``_mod_chirp_tables``, ``base_downchirp_planar``) are copies of the JAX
-module's, so the tables are bit-equal; the device code is torch.
+module's, so the tables are bit-equal; the device code is torch. The
+complex ``modulate_symbols`` / ``base_downchirp`` are built from the
+planar planes, as in the JAX twin.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from .. import device_table
+from .. import device_of, device_table
 
 
 def _lattice_period(n: int, osr: int, bw_scale: float) -> tuple[float, int]:
@@ -183,6 +185,28 @@ def modulate_symbols_planar(symbols: torch.Tensor, sf: int, osr: int,
     re, im = _mod_chirps_planar(allsyms, 1 << sf, osr, bw8, ampl, continuous,
                                 phase_carry)
     return (re.reshape(*re.shape[:-2], -1), im.reshape(*im.shape[:-2], -1))
+
+
+def modulate_symbols(symbols: torch.Tensor, sf: int, osr: int, bw_scale: float,
+                     ampl: float = 1.0, sync_word: int = 0x12,
+                     continuous: bool = False, phase_carry: bool = True) -> torch.Tensor:
+    """The ``lora_modulate`` TX chain (src/phy/LoRaMod.cpp:8-43) as
+    complex64: [..., S] -> [..., (S+2)*N*osr], built from the planar
+    emitter's planes (bit-equal to them, as in the JAX twin).
+    ``phase_carry=False`` starts every symbol chirp at phase 0 (the
+    gr-lora_sdr per-symbol-independent modulator)."""
+    return torch.complex(*modulate_symbols_planar(
+        symbols, sf, osr, bw_scale, ampl, sync_word, continuous, phase_carry))
+
+
+def base_downchirp(sf: int, bw_scale: float = 1.0, osr: int = 1,
+                   device=None) -> torch.Tensor:
+    """The canonical dechirp reference ``genChirp(N, osr, N*osr, 0, down)``
+    as a complex64 [N*osr] tensor on ``device`` (default: the first CUDA
+    card), from the float64 host oracle of :func:`base_downchirp_planar`."""
+    re, im = device_table(base_downchirp_planar, sf, bw_scale, osr,
+                          device=device_of(None, device))
+    return torch.complex(re, im)
 
 
 @functools.lru_cache(maxsize=16)
