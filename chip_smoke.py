@@ -60,15 +60,36 @@ Imports no JAX. Phases, one line each (or a few):
    wrong frame passes its CRC; the adaptive receiver on the card against
    the CPU on a 16-frame prefix; the block receiver's soft path
    (receive_block_planar with spectra -> hamming84_ml_decode) on phase
-   5's stream.
+   5's stream;
+11. the wideband gateway at bench.py's shape: channelize_planar (K=8, bench's
+   default 7 taps per branch) over 2**25 seeded Gaussian samples, timed, its
+   first 2**16 samples against the CPU (atol 1e-5); receive_wideband_planar
+   (15 taps per branch) over 8 channels x 512 frames of phase 5's payloads
+   synthesised by synthesize_channels_planar (25.3 M wideband samples): at least 8 x 511 frames, all bit-exact, sync 0x12;
+   its time with and without spectra, a profile, and card vs CPU decisions on
+   a 2-frame-per-channel prefix;
+12. the other block modes: pre_acc=3 (lora-rx-stream --robust) on phase 5's
+   stream, every decision equal to pre_acc=1's, timed; the near-equal-power
+   two-ray channel (apply_multipath_planar, numpy AWGN at 5 dB, 15 trials as
+   channels) decoded on the card as on the CPU; loud noise gives no frame;
+   cad_planar over phase 5's stream (active) and silence (inactive), timed
+   against the receiver; receive_blind_planar over one stream holding one frame
+   at each of SF7-12, all six found with their SF and bytes; the
+   --frontend-correct loop (apply_frontend, estimate, compensate, decode);
+13. SIC at lora-rx-stream --sic's settings (SF7, 65,536-sample blocks,
+   max_frames 8): two overlapping frames at sic_sweep.py's gaps of 3-15 dB, 20
+   dB SNR (numpy noise), weak-frame recovery per gap and host ms per peel; one
+   profile; the card's frame lists against the CPU's on one trial per gap.
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
-again for every frame, as the JAX twin's): 15-20 s of host time.
+again for every frame, as the JAX twin's): 15-20 s of host time; so are the
+SIC loop and the blind receiver's six SFs (phases 12-13).
 Then a JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -77,10 +98,10 @@ import time
 import numpy as np
 import torch
 
-from lora_phy_tpu_torch import LoraParams, Window, _build
-from lora_phy_tpu_torch.models import coded, modem, soft, stream, sync
+from lora_phy_tpu_torch import Bandwidth, LoraParams, Window, _build
+from lora_phy_tpu_torch.models import coded, modem, sic, soft, stream, sync
+from lora_phy_tpu_torch.ops import channelizer, impair, planar
 from lora_phy_tpu_torch.ops import fused_demod as fused
-from lora_phy_tpu_torch.ops import planar
 
 CHANNELS, FRAMES, PAYLOAD_LEN, POOL = 8, 8192, 32, 64
 NEAR_TIE_REL = 1e-5
@@ -92,6 +113,17 @@ BLOCK_FRAMES, BLOCK_PAYLOAD, BLOCK_GAP = 512, 16, 4
 # dB: the hard receiver loses ~28 % of the 64 frames there)
 GATEWAY_FRAMES, CODED_SMALL_FRAMES, GATEWAY_BLOCK = 256, 1024, 65536
 PHASE10_FRAMES, PHASE10_SNR_DB, PHASE10_CPU_FRAMES = 64, -8.5, 16
+# the wideband gateway (bench.py's flagship path): channels, FIR taps per
+# branch of the wideband receiver, the channelizer-alone input length and
+# its taps per branch (bench.py's channelizer row: the default 7)
+WIDEBAND_K, WIDEBAND_TAPS, CHANNELIZE_SAMPLES, CHANNELIZE_TAPS = 8, 15, 1 << 25, 7
+# the robust mode's two-ray channel: trials (one per channel), SNR per sample
+TWO_RAY_TRIALS, TWO_RAY_SNR_DB = 15, 5.0
+# SIC at lora-rx-stream --sic's settings and sic_sweep.py's collisions
+SIC_GAPS_DB, SIC_SNR_DB, SIC_TRIALS = (3.0, 6.0, 9.0, 12.0, 15.0), 20.0, 8
+SIC_BLOCK, SIC_MAX_FRAMES, SIC_PAYLOAD = 65536, 8, 6
+GOLDEN_TIE = (pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "golden"
+              / "sf7_bw250000_osr2_win0.npz")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor
 # cores, HBM bandwidth
 PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -261,9 +293,20 @@ def main():
     torch.cuda.empty_cache()
     sig, truth = phase9_gateway_stream(dev, card)
     phase10_noise_and_soft(dev, card, sig, truth, xr, xi, pay)
+    del sig
+    torch.cuda.empty_cache()
+    other = phase11_wideband(dev, card)
+    torch.cuda.empty_cache()
+    other.update(phase12_block_modes(dev, card, xr, xi, pay))
+    del xr, xi
+    torch.cuda.empty_cache()
+    other.update(phase13_sic(dev, card))
 
     check("jax" not in sys.modules, "the port imported JAX")
-    record["launches_by_path"] = {"main": record["launches"], "coded": coded_launches}
+    # the new paths reach no kernel of the port (none is a Pallas kernel in
+    # JAX): their counts are read from the counter all the same
+    record["launches_by_path"] = {"main": record["launches"], "coded": coded_launches,
+                                  **other}
     record["launches"] += coded_launches
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -508,6 +551,21 @@ def phase7_card_vs_cpu(dev, xr, xi):
     print(f"phase 7: receive_block_planar on 2 x {xr.shape[-1]} samples: found, "
           f"start, cfo_bins, symbols, sync equal on the card and the CPU "
           f"({int(cpu.found.sum())} frames)", flush=True)
+    # the golden cell whose sync tones tie exactly across the osr phases:
+    # the estimator keeps the tie (the reference's cfo and time offset)
+    g = np.load(GOLDEN_TIE)
+    pt = LoraParams(sf=7, bw=Bandwidth.BW_250, osr=2)
+    iq = torch.from_numpy(g["iq"]).to(dev)
+    dr, di = planar.dechirp_planar(iq.real.contiguous(), iq.imag.contiguous(), pt)
+    res = planar.demodulate_planar(dr, di, pt)
+    cfo, to = float(res.cfo), float(res.time_offset)
+    check(abs(cfo - float(g["cfo"])) <= 1e-6 and to == float(g["time_offset"]),
+          f"phase 7: {GOLDEN_TIE.name}: cfo {cfo} time_offset {to}, golden "
+          f"{float(g['cfo'])} {float(g['time_offset'])}")
+    check(torch.equal(res.symbols.cpu(), torch.from_numpy(g["demod"].astype(np.int32))),
+          f"phase 7: {GOLDEN_TIE.name}: symbols differ from the golden")
+    print(f"phase 7: {GOLDEN_TIE.stem} on the card: cfo {cfo:.6f}, time_offset {to}, "
+          f"symbols as the golden (the osr-phase tie holds)", flush=True)
 
 
 def coded_chain(dev, cfg, channels, frames, seed):
@@ -750,6 +808,324 @@ def phase10_noise_and_soft(dev, card, sig, truth, xr5, xi5, pay5):
     print(f"phase 10: {card}: block receiver soft path on phase 5's stream: {n_found} frames "
           f"found, all bit-exact through hamming84_ml_decode; receive_block_planar("
           f"with_spectra=True) {t_rx:.3f} ms, hamming84_ml_decode {t_ml:.3f} ms", flush=True)
+
+
+def same_blocks(a, b, label):
+    """Equal found on every lane; equal start / cfo_bins / symbols / sync on
+    the found lanes (a lane that found nothing carries unspecified
+    values)."""
+    check(torch.equal(a.found.cpu(), b.found.cpu()), f"{label}: found differs")
+    f = b.found.cpu()
+    for name in ("start", "cfo_bins", "symbols", "sync"):
+        check(torch.equal(getattr(a, name).cpu()[f], getattr(b, name).cpu()[f]),
+              f"{label}: {name} differs")
+
+
+def phase11_wideband(dev, card):
+    """The channelizer alone and the wideband receiver at bench.py's shape;
+    returns the kernel launch counts of both paths."""
+    p = LoraParams(sf=7)
+    k, taps = WIDEBAND_K, CHANNELIZE_TAPS
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = CHANNELIZE_SAMPLES
+    xr = torch.randn(n, generator=gen, device=dev)
+    xi = torch.randn(n, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    cr, ci = channelizer.channelize_planar(xr, xi, k, taps)
+    torch.cuda.synchronize()
+    chan_launches = fused.LAUNCHES
+    head = 1 << 16
+    hr, hi = channelizer.channelize_planar(xr[:head].cpu(), xi[:head].cpu(), k, taps)
+    m = head // k - taps                      # frames whose windows lie in the head
+    err = max(float((cr[:, :m].cpu() - hr[:, :m]).abs().max()),
+              float((ci[:, :m].cpu() - hi[:, :m]).abs().max()))
+    check(tuple(cr.shape) == (k, n // k), f"phase 11: channelized shape {tuple(cr.shape)}")
+    check(err <= 1e-5, f"phase 11: channelizer differs from the CPU by {err}")
+    t_chan = cuda_ms(lambda: channelizer.channelize_planar(xr, xi, k, taps), iters=10)
+    del cr, ci, xr, xi
+    # least time: both planes read and both written once; or its multiply-
+    # adds, 2K outputs x 2*taps*K terms per output frame
+    nbytes = 4 * 2 * n * 2
+    flops = 2 * (n // k) * (2 * k) * (2 * taps * k)
+    t_bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS) * 1e3
+    print(f"phase 11: {card}: channelize_planar K={k}, {taps} taps per branch, over {n} "
+          f"samples: {t_chan:.3f} ms ({n / t_chan / 1e6:.3f} Gsamples/s, "
+          f"{nbytes / t_chan / 1e6:.0f} GB/s); bound {t_bound:.3f} ms ({nbytes:.4g} B, "
+          f"{flops:.4g} flop); the first {head} samples' channels within {err:.2e} of the "
+          f"CPU's; fused_demod launches {chan_launches}", flush=True)
+
+    # the wideband receiver: phase 5's traffic on every channel, through the
+    # synthesis bank into one stream at K times the rate
+    taps = WIDEBAND_TAPS
+    xr_c, xi_c, pay, period = block_stream(dev, p, k, BLOCK_FRAMES)
+    wr, wi = channelizer.synthesize_channels_planar(xr_c, xi_c, k, taps)
+    del xr_c, xi_c
+    n_pay = 2 * BLOCK_PAYLOAD
+    kw = {"max_frames": BLOCK_FRAMES, "taps_per_branch": taps, "min_power_db": -30.0}
+
+    def run(spectra=False):
+        return sync.receive_wideband_planar(wr, wi, k, p, n_pay, with_spectra=spectra, **kw)
+
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    blk = run()
+    torch.cuda.synchronize()
+    wb_launches = fused.LAUNCHES
+    n_found = check_block(blk, pay, k * (BLOCK_FRAMES - 1), "phase 11")
+    total = wr.numel()
+    t_wb = cuda_ms(run, iters=5)
+    t_spec = cuda_ms(lambda: run(True), iters=5)
+    print(f"phase 11: {card}: receive_wideband_planar over {total} wideband samples "
+          f"({k} channels x {BLOCK_FRAMES} frames): {n_found} found, all bit-exact, sync "
+          f"0x12; {t_wb:.3f} ms ({total / t_wb / 1e6:.3f} Gsamples/s, "
+          f"{n_found / t_wb * 1e3:.0f} frames/s), with_spectra=True {t_spec:.3f} ms; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; fused_demod "
+          f"launches {wb_launches}", flush=True)
+    profile_once(run, f"phase 11: {card}: receive_wideband_planar")
+
+    # the card against the CPU on a 2-frame-per-channel prefix
+    cut = (2 * period + 4 * p.step) * k
+    kw_cut = dict(kw, max_frames=2)
+    on_card = sync.receive_wideband_planar(wr[:cut], wi[:cut], k, p, n_pay, **kw_cut)
+    on_cpu = sync.receive_wideband_planar(wr[:cut].cpu(), wi[:cut].cpu(), k, p, n_pay,
+                                          **kw_cut)
+    same_blocks(on_card, on_cpu, "phase 11 card vs CPU")
+    check(int(on_cpu.found.sum()) == 2 * k, f"phase 11: the CPU found "
+          f"{int(on_cpu.found.sum())} of {2 * k} prefix frames")
+    print(f"phase 11: receive_wideband_planar on a {cut}-sample prefix: equal decisions on "
+          f"the card and the CPU ({int(on_cpu.found.sum())} frames)", flush=True)
+    return {"channelize": chan_launches, "wideband": wb_launches}
+
+
+def two_ray_trials(p, payload, trials, seed, dev):
+    """One frame at 3 windows through the near-equal-power two-ray channel
+    (a 0.95 echo 3 samples late) plus numpy AWGN, one trial per channel."""
+    iq = stream.frame_modulate(modem.encode(torch.from_numpy(payload).to(dev)), p)
+    s = torch.zeros(3 * p.step + iq.numel() + 4 * p.step, dtype=torch.complex64, device=dev)
+    s[3 * p.step: 3 * p.step + iq.numel()] = iq
+    taps = np.array([1.0, 0, 0, 0.95 * np.exp(2.0j)], np.complex64)
+    yr, yi = impair.apply_multipath_planar(s.real, s.imag, taps.real, taps.imag)
+    rng = np.random.RandomState(seed)
+    sigma = np.sqrt(0.5 * 10.0 ** (-TWO_RAY_SNR_DB / 10.0))
+    noise = torch.from_numpy((sigma * rng.randn(2, trials, s.numel())).astype(np.float32))
+    return yr + noise[0].to(dev), yi + noise[1].to(dev)
+
+
+def blind_stream(dev, payload_len, seed):
+    """One stream holding one frame at each of SF7-12, 4 windows of its own
+    SF after the previous one, and their (sf, start, payload)."""
+    rng = np.random.RandomState(seed)
+    parts, truth, pos = [], [], 0
+    for sf in range(7, 13):
+        p = LoraParams(sf=sf)
+        pl = rng.randint(0, 256, payload_len).astype(np.uint8)
+        fr, fi = stream.frame_modulate_planar(modem.encode(torch.from_numpy(pl).to(dev)), p)
+        gap = torch.zeros(2, 4 * p.step, device=dev)
+        pos += gap.shape[-1]
+        truth.append((sf, pos, pl))
+        parts += [gap, torch.stack([fr, fi])]
+        pos += fr.numel()
+    parts.append(torch.zeros(2, 14 * LoraParams(sf=12).step, device=dev))
+    x = torch.cat(parts, dim=-1)
+    return x[0].contiguous(), x[1].contiguous(), truth
+
+
+def phase12_block_modes(dev, card, xr5, xi5, pay5):
+    """The robust mode, CAD, blind SF and the front-end correction; returns
+    the kernel launch counts of each path."""
+    p = LoraParams(sf=7)
+    n_pay = 2 * BLOCK_PAYLOAD
+    launches = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        fused.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = fused.LAUNCHES
+        return out
+
+    def receive(pre_acc):
+        return sync.receive_block_planar(xr5, xi5, p, n_pay, max_frames=BLOCK_FRAMES,
+                                         min_power_db=-30.0, pre_acc=pre_acc)
+
+    # --robust: pre_acc=3 on phase 5's stream gives pre_acc=1's decisions
+    robust = counted("robust", lambda: receive(3))
+    plain = receive(1)
+    same_blocks(robust, plain, "phase 12 pre_acc=3 vs pre_acc=1")
+    n_found = check_block(robust, pay5, CHANNELS * (BLOCK_FRAMES - 1), "phase 12 robust")
+    t3 = cuda_ms(lambda: receive(3), iters=5)
+    t1 = cuda_ms(lambda: receive(1), iters=5)
+    print(f"phase 12: {card}: receive_block_planar(pre_acc=3) on phase 5's stream: {n_found} "
+          f"frames, every decision equal to pre_acc=1's; {t3:.3f} ms against {t1:.3f} ms at "
+          f"pre_acc=1 ({xr5.numel() / t3 / 1e6:.3f} Gsamples/s); fused_demod launches "
+          f"{launches['robust']}", flush=True)
+    profile_once(lambda: receive(3), f"phase 12: {card}: receive_block_planar(pre_acc=3)")
+
+    # the two-ray channel that defeats the plain receiver
+    pl = np.random.RandomState(26).randint(0, 256, 8).astype(np.uint8)
+    yr, yi = two_ray_trials(p, pl, TWO_RAY_TRIALS, seed=4000, dev=dev)
+    decoded = {}
+    for acc in (1, 3):
+        blk = sync.receive_block_planar(yr, yi, p, 16, min_power_db=-30.0, pre_acc=acc)
+        ref = sync.receive_block_planar(yr.cpu(), yi.cpu(), p, 16, min_power_db=-30.0,
+                                        pre_acc=acc)
+        same_blocks(blk, ref, f"phase 12 two-ray pre_acc={acc} card vs CPU")
+        ok = (modem.decode(blk.symbols) == torch.from_numpy(pl).to(dev)).all(-1)
+        near = (blk.start - 3 * p.step).abs() <= p.step
+        decoded[acc] = int((ok & near & blk.found).any(-1).sum())
+    check(decoded[3] >= TWO_RAY_TRIALS * 2 // 3 and decoded[1] <= TWO_RAY_TRIALS // 3,
+          f"phase 12 two-ray: robust decodes {decoded[3]}, plain {decoded[1]} of "
+          f"{TWO_RAY_TRIALS}")
+    print(f"phase 12: two-ray channel (0.95 echo, 3 samples), {TWO_RAY_SNR_DB} dB, "
+          f"{TWO_RAY_TRIALS} trials: pre_acc=3 decodes {decoded[3]}, pre_acc=1 {decoded[1]}; "
+          f"card and CPU decisions equal", flush=True)
+    rng = np.random.RandomState(99)
+    loud = torch.from_numpy((np.sqrt(0.5) * rng.randn(2, 20000)).astype(np.float32)).to(dev)
+    blk = sync.receive_block_planar(loud[0], loud[1], p, 16, min_power_db=-30.0, pre_acc=3)
+    check(not bool(blk.found.any()), "phase 12: pre_acc=3 found a frame in loud noise")
+    print("phase 12: pre_acc=3 on 20000 samples of 0 dB noise: no frame", flush=True)
+
+    # CAD over the same stream and over silence
+    active, peak_db = counted("cad", lambda: sync.cad_planar(xr5, xi5, p))
+    quiet, _ = sync.cad_planar(torch.zeros_like(xr5), torch.zeros_like(xi5), p)
+    check(bool(active.all()) and not bool(quiet.any()),
+          f"phase 12: CAD active {active.tolist()}, silence {quiet.tolist()}")
+    t_cad = cuda_ms(lambda: sync.cad_planar(xr5, xi5, p), iters=10)
+    print(f"phase 12: {card}: cad_planar over phase 5's {CHANNELS} channels: all active "
+          f"(peak {float(peak_db.min()):.2f} dB), silence inactive; {t_cad:.3f} ms against "
+          f"{t1:.3f} ms for the full receive; fused_demod launches {launches['cad']}",
+          flush=True)
+
+    # blind SF: one frame at each of SF7-12 in one stream
+    br, bi, truth = blind_stream(dev, BLOCK_PAYLOAD, seed=12)
+    t0 = time.perf_counter()
+    res = counted("blind", lambda: sync.receive_blind_planar(br, bi, p, n_pay))
+    rows = sync.blind_frames(res)
+    dt = time.perf_counter() - t0
+    got = [(r["sf"], r["start"], bytes(modem.decode(r["symbols"]).cpu().numpy()))
+           for r in rows]
+    want = [(sf, st, pl.tobytes()) for sf, st, pl in truth]
+    check(sorted(got) == sorted(want) and all(r["sync"] == 0x12 for r in rows),
+          f"phase 12 blind: {[(g[0], g[1]) for g in got]} against "
+          f"{[(w[0], w[1]) for w in want]}")
+    def blind():
+        return sync.blind_frames(sync.receive_blind_planar(br, bi, p, n_pay))
+
+    t0 = time.perf_counter()
+    blind()
+    dt2 = time.perf_counter() - t0
+    print(f"phase 12: {card}: receive_blind_planar over {br.numel()} samples: all six "
+          f"frames (SF7-12) found at their SF and start, bytes exact, sync 0x12; host clock "
+          f"for six SFs and the rows {dt * 1e3:.1f} ms (first call), {dt2 * 1e3:.1f} ms "
+          f"(second); fused_demod launches {launches['blind']}", flush=True)
+    profile_once(blind, f"phase 12: {card}: receive_blind_planar + blind_frames", calls=3)
+
+    # --frontend-correct: DC and IQ imbalance, blind estimate, compensate, decode
+    frames = min(16, BLOCK_FRAMES)
+    period = xr5.shape[-1] // BLOCK_FRAMES
+    clean = torch.complex(xr5[0, :frames * period], xi5[0, :frames * period])
+    bad = impair.apply_frontend(clean, dc=0.05 + 0.03j, gain_imbalance=1.1,
+                                phase_skew_deg=5.0)
+
+    def corrected():
+        est = impair.estimate_frontend_planar(bad.real.contiguous(), bad.imag.contiguous())
+        return est, impair.compensate_frontend_planar(bad.real, bad.imag, *est)
+
+    (dc_i, dc_q, g, sin_phi), (cr, ci) = counted("frontend", corrected)
+    blk = sync.receive_block_planar(cr, ci, p, n_pay, max_frames=frames, min_power_db=-30.0)
+    n_ok = int(((modem.decode(blk.symbols) == pay5[0]).all(-1) & blk.found).sum())
+    check(n_ok == frames, f"phase 12 frontend: {n_ok} of {frames} frames decoded")
+    print(f"phase 12: --frontend-correct on {frames} frames (dc 0.05+0.03j, gain 1.1, 5 "
+          f"degrees): estimated dc {float(dc_i):.4f}{float(dc_q):+.4f}j, gain "
+          f"{float(g):.4f}, sin(phi) {float(sin_phi):.4f} (true "
+          f"{np.sin(np.radians(5.0)):.4f}); all {frames} frames bit-exact after "
+          f"compensation", flush=True)
+    return launches
+
+
+def sic_trial(dev, p, gap_db, rng):
+    """sic_sweep.py's collision in a SIC_BLOCK-sample block: the weak frame
+    5 windows after the strong one, ``gap_db`` under it, numpy AWGN at
+    SIC_SNR_DB relative to the strong frame. Returns the planes, the two
+    starts and the two payloads."""
+    off_a = 2 * p.step
+    off_b = off_a + 5 * p.step
+    pay_a = rng.randint(0, 256, SIC_PAYLOAD).astype(np.uint8)
+    pay_b = rng.randint(0, 256, SIC_PAYLOAD).astype(np.uint8)
+    fa = stream.frame_modulate(modem.encode(torch.from_numpy(pay_a).to(dev)), p)
+    fb = 10.0 ** (-gap_db / 20.0) * stream.frame_modulate(
+        modem.encode(torch.from_numpy(pay_b).to(dev)), p)
+    s = torch.zeros(SIC_BLOCK, dtype=torch.complex64, device=dev)
+    s[off_a: off_a + fa.numel()] += fa
+    s[off_b: off_b + fb.numel()] += fb
+    sigma = 10.0 ** (-SIC_SNR_DB / 20.0) / np.sqrt(2.0)
+    noise = torch.from_numpy((sigma * rng.randn(2, SIC_BLOCK)).astype(np.float32)).to(dev)
+    return s.real + noise[0], s.imag + noise[1], (off_a, off_b), (pay_a, pay_b)
+
+
+def same_sic_frames(a, b, label):
+    """Equal frame lists (start, sync, cfo_bins, sic_pass, symbols); cfo
+    within 1e-5 bins and gains within 1e-4 relative."""
+    check(len(a) == len(b), f"{label}: {len(a)} frames against {len(b)}")
+    for x, y in zip(a, b):
+        check(all(x[key] == y[key] for key in ("start", "sync", "cfo_bins", "sic_pass"))
+              and torch.equal(x["symbols"].cpu(), y["symbols"].cpu()),
+              f"{label}: frame at {x['start']} differs")
+        gx, gy = complex(*x["gain"]), complex(*y["gain"])
+        check(abs(x["cfo"] - y["cfo"]) <= 1e-5 and abs(gx - gy) <= 1e-4 * abs(gy),
+              f"{label}: frame at {x['start']}: cfo {x['cfo']} / {y['cfo']}, "
+              f"gain {gx} / {gy}")
+
+
+def phase13_sic(dev, card):
+    """SIC over sic_sweep.py's collisions at --sic's settings; returns the
+    kernel launch count of the SIC path."""
+    p = LoraParams(sf=7)
+    n_pay = 2 * SIC_PAYLOAD
+    rng = np.random.RandomState(13)
+    kw = {"max_frames": SIC_MAX_FRAMES, "min_power_db": -30.0, "max_iters": SIC_MAX_FRAMES}
+    launches = 0
+
+    def hit(rows, off, pay):
+        return any(abs(r["start"] - off) <= 2 and bytes(
+            modem.decode(r["symbols"]).cpu().numpy()) == pay.tobytes() for r in rows)
+
+    for gap in SIC_GAPS_DB:
+        weak_plain = weak_sic = strong_sic = peels = 0
+        host = 0.0
+        for t in range(SIC_TRIALS):
+            xr, xi, (off_a, off_b), (pay_a, pay_b) = sic_trial(dev, p, gap, rng)
+            plain = sync.block_rows(sync.receive_block_planar(xr, xi, p, n_pay,
+                                                              min_power_db=-30.0))
+            weak_plain += hit(plain, off_b, pay_b)
+            torch.cuda.synchronize()
+            fused.LAUNCHES = 0
+            t0 = time.perf_counter()
+            frames, _ = sic.receive_sic_planar(xr, xi, p, n_pay, **kw)
+            host += time.perf_counter() - t0
+            launches += fused.LAUNCHES
+            peels += len(frames)
+            weak_sic += hit(frames, off_b, pay_b)
+            strong_sic += hit(frames, off_a, pay_a)
+            if t == 0:
+                on_cpu, _ = sic.receive_sic_planar(xr.cpu(), xi.cpu(), p, n_pay, **kw)
+                same_sic_frames(frames, on_cpu, f"phase 13 gap {gap:g} dB card vs CPU")
+        check(strong_sic == SIC_TRIALS and weak_sic >= weak_plain,
+              f"phase 13 gap {gap:g} dB: strong {strong_sic}, weak {weak_sic} (plain "
+              f"{weak_plain}) of {SIC_TRIALS}")
+        print(f"phase 13: {card}: gap {gap:g} dB, {SIC_TRIALS} trials at {SIC_SNR_DB} dB SNR "
+              f"in {SIC_BLOCK}-sample blocks: weak frame {weak_sic} of {SIC_TRIALS} with SIC, "
+              f"{weak_plain} in one plain pass; strong {strong_sic}; "
+              f"{host / SIC_TRIALS * 1e3:.1f} ms host per call, "
+              f"{host / max(peels, 1) * 1e3:.1f} ms per peeled frame; card and CPU frame lists "
+              f"equal on the first trial", flush=True)
+    xr, xi, _, _ = sic_trial(dev, p, 9.0, rng)
+    profile_once(lambda: sic.receive_sic_planar(xr, xi, p, n_pay, **kw),
+                 f"phase 13: {card}: receive_sic_planar, one {SIC_BLOCK}-sample block, "
+                 f"two frames", calls=3)
+    return {"sic": launches}
 
 
 if __name__ == "__main__":

@@ -10,17 +10,27 @@ mirrors its JAX twin file for file:
                       SX1272 CRC16, checksums, diagonal interleavers
   ops/chirp.py        integer-lattice chirp emitter (table gather / trig)
                       and the complex modulate_symbols / base_downchirp
-  ops/fft.py          four-step DFT factor tables
-  ops/planar.py       planar (re, im) TX, dechirp and demodulation
+  ops/fft.py          FFT backends (torch.fft, the four-step DFT matmul)
+  ops/detect.py       the complex detector (argmax, powers, fractional bin)
+  ops/planar.py       planar (re, im) TX, dechirp and demodulation, the
+                      preamble estimators, estimate / compensate offsets
   ops/fused_demod.py  the fused scale + derotate + FFT + argmax kernel's
                       wrapper and its plain PyTorch twin
-  models/modem.py     encode / decode and the complex-input API
+  ops/impair.py       channel injectors (CFO, shift, AWGN, SRO, multipath,
+                      front end) and the blind front-end corrector
+  ops/channelizer.py  polyphase analysis and synthesis filter banks
+  models/modem.py     encode / decode, the complex demodulators and the
+                      offsets API
   models/coded.py     the coded chain (CRC, whitening, FEC, interleaving,
                       Gray) and the explicit header
   models/soft.py      soft decoding: max-log LLRs, ML codeword decoding
   models/stream.py    frame synthesis, frame sync, the serial and adaptive
                       (header-driven) receivers, the block-wise receiver
-  models/sync.py      the frame-sync scan and the block receiver
+  models/sync.py      the frame-sync scan, the block receiver (plain and
+                      multipath-robust), CAD, blind SF, the wideband
+                      receiver
+  models/sic.py       the collision receiver (successive interference
+                      cancellation)
   utils/params.py     LoraParams, Window, Bandwidth (the port's own copy)
 
 Functions take tensors and compute on the device those tensors live on;

@@ -1,6 +1,5 @@
-"""Batched frame synchronisation and the block receiver — the PyTorch twin
-of ``lora_phy_tpu/models/sync.py`` (the scan and ``receive_block_planar``
-at ``pre_acc=1``).
+"""Batched frame synchronisation and the block receivers — the PyTorch
+twin of ``lora_phy_tpu/models/sync.py``.
 
 :func:`frame_sync_scan_planar` runs the two-sided dechirp scan over
 ``[..., T]`` planes: every symbol window is up- and down-dechirped and
@@ -14,15 +13,18 @@ and the downchirp section splits timing from integer CFO.
 :func:`receive_block_planar` then selects up to ``max_frames`` candidates
 per channel, extracts their windows and demodulates every frame, all on
 the device; the host only reads the resulting :class:`BlockFrames`.
+``pre_acc`` 2..3 is the multipath-robust mode (accumulated-spectrum scan,
+common-bin CFO, noncoherent path combining).
 
-Not ported yet (ROADMAP.md Queue 1): ``pre_acc`` 2..3, the multipath-
-robust accumulated-spectrum mode, raises ``NotImplementedError``;
-``cad_planar``, ``receive_blind_planar``, ``blind_frames`` and
-``receive_wideband_planar``.
+Around it: :func:`cad_planar` (channel-activity detection),
+:func:`receive_blind_planar` / :func:`blind_frames` (every SF over one
+stream) and :func:`receive_wideband_planar` (the polyphase channelizer,
+then the block receiver on every channel).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import NamedTuple
@@ -34,14 +36,12 @@ import torch.nn.functional as F
 from .. import LoraParams, device_table
 from ..ops.chirp import base_downchirp_planar, gen_chirp_np
 from ..ops.planar import (_decimation_phase, _preamble_phase_step,
-                          argmax_bins_planar, dechirp_planar, dft_mag2_planar,
+                          argmax_bins_planar, as_planes, dechirp_planar,
+                          dft_mag2_planar, dft_planar,
                           demodulate_spectrum_planar, detect_planar,
-                          estimate_preamble_planar, estimate_sro_planar)
-from .modem import _window_table
-
-_PRE_ACC_TODO = ("pre_acc 2..3 (the multipath-robust accumulated-spectrum "
-                 "mode) is not ported: ROADMAP.md Queue 1, item 4.3 "
-                 "(pre_acc > 1)")
+                          estimate_preamble_planar,
+                          estimate_preamble_robust_planar, estimate_sro_planar)
+from .modem import _sync_from_symbols, _window_table
 
 
 class SyncScan(NamedTuple):
@@ -70,11 +70,11 @@ def _round_half_even(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_pre_acc(pre_acc: int) -> None:
-    if pre_acc == 1:
-        return
-    if 2 <= pre_acc <= 3:
-        raise NotImplementedError(_PRE_ACC_TODO)
-    raise ValueError(f"pre_acc must be 1 (off) or 2..3, got {pre_acc}")
+    if not 1 <= pre_acc <= 3:
+        raise ValueError(
+            "pre_acc must be 1 (off) or 2..3: the SFD pair search and the "
+            "3-hypothesis start probe only cover the run-end smear of "
+            f"accumulations up to 3 windows (got {pre_acc})")
 
 
 def _downchirp(params: LoraParams, device):
@@ -92,7 +92,14 @@ def frame_sync_scan_planar(xr: torch.Tensor, xi: torch.Tensor,
     ``min_power_db`` gates candidates on the up-dechirped peak power of
     the run's last preamble window (detector dB convention,
     LoRaDetector.hpp:64: 0 dB = full-scale chirp); without it, silence
-    syncs "perfectly". Only ``pre_acc=1`` is ported."""
+    syncs "perfectly".
+
+    ``pre_acc`` 2..3 is the multipath-robust detector: the per-window
+    |DFT|² spectra are summed over ``pre_acc`` windows before the argmax
+    (a near-equal-power two-ray channel's per-window argmax alternates
+    between the paths' bins and never forms a run), the SFD test becomes
+    a paired-sum down-vs-up dominance test, and a concentration gate
+    (accumulated peak >= 8x the accumulated mean) rejects loud noise."""
     _check_pre_acc(pre_acc)
     n, osr, step = params.n, params.osr, params.step
     nwin = xr.shape[-1] // step
@@ -112,10 +119,41 @@ def frame_sync_scan_planar(xr: torch.Tensor, xi: torch.Tensor,
     # through ONE stacked DFT + argmax
     ur, ui = windows(ar * dr - ai * di, ar * di + ai * dr)
     vr, vi = windows(ar * dr + ai * di, ai * dr - ar * di)
-    bins, peaks = argmax_bins_planar(torch.stack([ur, vr]),
-                                     torch.stack([ui, vi]), n, with_peak=True)
-    ub, db = bins[0], bins[1]
-    up_peak, dn_peak = peaks[0], peaks[1]
+    conc_ok = None
+    if pre_acc == 1:
+        bins, peaks = argmax_bins_planar(torch.stack([ur, vr]),
+                                         torch.stack([ui, vi]), n, with_peak=True)
+        ub, db = bins[0], bins[1]
+        up_peak, dn_peak = peaks[0], peaks[1]
+    else:
+        m = dft_mag2_planar(torch.stack([ur, vr]), torch.stack([ui, vi]), n)
+        m_up, m_dn = m[0], m[1]                        # [..., W, n]
+        zrows = torch.zeros(*lead, min(pre_acc, nwin), n, device=dev)
+
+        def lagged(x, j):
+            """x shifted j window-rows later (leading zeros), any nwin."""
+            return torch.cat([zrows[..., :j, :], x], dim=-2)[..., :nwin, :]
+
+        # causal sliding sum over pre_acc windows as pre_acc-1 shifted
+        # adds, as the JAX twin (a cumsum's difference form loses
+        # precision on long blocks)
+        s_up = m_up
+        for j in range(1, pre_acc):
+            s_up = s_up + lagged(m_up, j)
+        up_max, ub = torch.max(s_up, dim=-1)
+        ub = ub.to(torch.int32)
+        up_peak = up_max / pre_acc                     # per-window scale
+        # loud noise forms long runs under overlapping sums: require a
+        # tone-like concentration, accumulated peak >= 8x its mean
+        conc_ok = up_peak * pre_acc >= 8.0 * torch.mean(s_up, dim=-1)
+        # SFD: paired dn sums; the pair argmax replaces the equality test
+        zrow = zrows[..., :1, :]
+        dn2 = m_dn + torch.cat([m_dn[..., 1:, :], zrow], dim=-2)
+        up2 = m_up + torch.cat([m_up[..., 1:, :], zrow], dim=-2)
+        dn_max, db = torch.max(dn2, dim=-1)
+        db = db.to(torch.int32)
+        dn_peak = dn_max / 2.0
+        up_peak_pair = up2.amax(dim=-1) / 2.0
 
     # --- preamble run lengths; +-1-bin neighbours count as equal (a tone
     # at a half bin flips between two argmax bins on rounding) ----------
@@ -132,11 +170,15 @@ def frame_sync_scan_planar(xr: torch.Tensor, xi: torch.Tensor,
     is_end = (run >= need) & ~eq_next                 # maximal-run ends
 
     # --- downchirp section: first c in [end+1, end+5] with db[c]~db[c+1]
-    # and down-dechirp dominance at the pair head (silence: 0 > 0 fails)
-    dn_dom = dn_peak > up_peak
-    d_db = torch.remainder(db[..., 1:] - db[..., :-1], n)
-    db_adj = (d_db == 0) | (d_db == 1) | (d_db == n - 1)
-    db_eq = torch.cat([db_adj & dn_dom[..., :-1], false1], dim=-1)
+    # and down-dechirp dominance at the pair head (silence: 0 > 0 fails);
+    # under pre_acc the paired-sum dominance alone
+    if pre_acc == 1:
+        dn_dom = dn_peak > up_peak
+        d_db = torch.remainder(db[..., 1:] - db[..., :-1], n)
+        db_adj = (d_db == 0) | (d_db == 1) | (d_db == n - 1)
+        db_eq = torch.cat([db_adj & dn_dom[..., :-1], false1], dim=-1)
+    else:
+        db_eq = torch.cat([(dn_peak > up_peak_pair)[..., :-1], false1], dim=-1)
 
     def shift_left(a, o):
         pad = torch.zeros(*lead, o, dtype=a.dtype, device=dev)
@@ -171,10 +213,14 @@ def frame_sync_scan_planar(xr: torch.Tensor, xi: torch.Tensor,
     # two-sided split; the tau arm divides by the chirp slope ``scale``
     tau = _round_half_even((bin_dn - bin_up) / (2.0 * params.scale)) * osr
     cfo_bins = _round_half_even((bin_dn + bin_up) / 2.0)
-    start = (w_idx - preamble_len + 1) * step + tau
+    # accumulated bins hold their value ~pre_acc-1 windows past the run end
+    # (one host-side constant: no extra device op at pre_acc=1)
+    start = (w_idx - (preamble_len - 1 + pre_acc - 1)) * step + tau
     # the run end is fuzzy by one window: keep a nominally negative start
     # whose +step alias is in range (the receiver's probe resolves it)
     valid = is_end & has_dwin & (start + step >= 0)
+    if conc_ok is not None:
+        valid = valid & conc_ok
     if min_power_db is not None:
         power_db = (10.0 * torch.log10(torch.clamp(up_peak, min=1e-30))
                     - 20.0 * math.log10(n))
@@ -275,6 +321,7 @@ def _snr_db(mag2_pay: torch.Tensor, n: int) -> torch.Tensor:
 def _receive_block_circular(xr, xi, params: LoraParams,
                             n_payload_symbols: int, max_frames: int,
                             preamble_len: int, start, cfo_bins, found,
+                            tx_phase_step: float | None = None,
                             with_spectra: bool = False):
     """Shift-free window extraction + demod (osr 1, no window).
 
@@ -387,7 +434,7 @@ def _receive_block_circular(xr, xi, params: LoraParams,
 
     # residual fractional CFO from the rotated preamble spectra: the tone
     # sits at (cfo_bins - q) mod n
-    pps = _preamble_phase_step(params.sf, params.osr, params.scale)
+    pps = _phase_step(params, tx_phase_step)
     b0 = torch.remainder(cfo_bins - q, n)
     cfo_resid = estimate_preamble_planar(
         ps_r[..., :preamble_len, :].reshape(*lead, max_frames, pre_len),
@@ -448,11 +495,20 @@ def _receive_block_circular(xr, xi, params: LoraParams,
     return blk, spectra
 
 
+def _phase_step(params: LoraParams, tx_phase_step: float | None) -> float:
+    """The transmitter's inter-symbol preamble phase delta: the override,
+    or this framework's own modulator's (:func:`_preamble_phase_step`)."""
+    if tx_phase_step is not None:
+        return tx_phase_step
+    return _preamble_phase_step(params.sf, params.osr, params.scale)
+
+
 def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
                          params: LoraParams, n_payload_symbols: int,
                          max_frames: int = 4, preamble_len: int = 8,
                          min_power_db: float | None = None,
                          pre_acc: int = 1,
+                         tx_phase_step: float | None = None,
                          with_spectra: bool = False) -> BlockFrames:
     """Demodulate every frame in a continuous ``[..., T]`` block on the
     device: the two-sided scan, selection of up to ``max_frames``
@@ -463,17 +519,29 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
     Two extraction paths, as in the JAX twin: the circular path (osr 1,
     no window, an anti-periodic lattice chirp) folds the sub-window shift
     and the integer-CFO derotation into bin arithmetic; the barrel path
-    (osr > 1, the Hann window) gathers window rows, shifts them by the
-    sub-window residual and refines timing below one osr step.
+    (osr > 1, the Hann window, ``pre_acc`` > 1) gathers window rows,
+    shifts them by the sub-window residual and, at osr > 1 and
+    ``pre_acc=1``, refines timing below one osr step.
 
-    Host reads: none on the circular path. On the barrel path the only
-    one is :func:`..ops.planar.demodulate_spectrum_planar`'s ``t_off ==
-    0`` branch (one boolean).
+    ``pre_acc`` 2..3 (the multipath-robust mode): the accumulated-spectrum
+    scan, the common-bin preamble CFO
+    (:func:`..ops.planar.estimate_preamble_robust_planar`) and
+    noncoherent path combining: every symbol's |DFT|² is circularly
+    cross-correlated with the frame's accumulated preamble spectrum, and
+    the decisions are the correlation's argmax.
 
-    ``with_spectra=True`` also returns the payload |DFT|² spectra
-    ``[..., K, n_payload, n]`` in true bin order. Only ``pre_acc=1`` is
-    ported; the JAX twin's ``tx_phase_step`` override (for gr-lora_sdr
-    transmitters) is not, as nothing in the port calls it yet."""
+    ``tx_phase_step`` overrides the transmitter's inter-symbol preamble
+    phase delta assumed by the fine-CFO estimator (default: this
+    framework's modulator's; ``0.0`` for gr-lora_sdr transmitters).
+
+    Host reads: none on the circular path. On the barrel path at
+    ``pre_acc=1`` the only one is
+    :func:`..ops.planar.demodulate_spectrum_planar`'s ``t_off == 0``
+    branch (one boolean); ``pre_acc`` > 1 makes none.
+
+    ``with_spectra=True`` also returns the payload spectra ``[..., K,
+    n_payload, n]`` in true bin order: |DFT|², or the combining scores
+    under ``pre_acc`` > 1 (the statistic the decisions use)."""
     from .stream import frame_overhead_samples     # stream imports this module
 
     _check_pre_acc(pre_acc)
@@ -483,16 +551,17 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
     dev = xr.device
 
     scan = frame_sync_scan_planar(xr, xi, params, preamble_len,
-                                  min_power_db=min_power_db)
+                                  min_power_db=min_power_db, pre_acc=pre_acc)
     pos, found = _kth_valid(scan.valid, max_frames)           # [..., K]
     start = torch.gather(scan.start, -1, pos)
     cfo_bins = torch.gather(scan.cfo_bins, -1, pos)
 
-    if (osr == 1 and _window_table(params) is None
+    if (osr == 1 and pre_acc == 1 and _window_table(params) is None
             and _circ_wrap_const(params)[1]):
         return _receive_block_circular(xr, xi, params, n_payload_symbols,
                                        max_frames, preamble_len,
                                        start, cfo_bins, found,
+                                       tx_phase_step=tx_phase_step,
                                        with_spectra=with_spectra)
 
     # --- window extraction: row gather + shift by the sub-window residual;
@@ -558,8 +627,8 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
     # --- sub-osr timing refinement (osr > 1): up-dechirped preamble
     # windows sit -e/osr bins off the integer CFO and the down-dechirped
     # first full SFD window +e/osr; measure e from the two-sided split and
-    # micro-shift the gathered buffer by it
-    if osr > 1:
+    # micro-shift the gathered buffer by it (not under pre_acc, as JAX)
+    if osr > 1 and pre_acc == 1:
         def _disp(a_off, down: bool):
             vr, vi = dechirp_pair(pick(gr_, a_off, step),
                                   pick(gi_, a_off, step), down)
@@ -603,44 +672,195 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
 
     yr, yi = dechirp_planar(dr, di, params)
     # residual fractional CFO anchored on the preamble section
-    pps = _preamble_phase_step(params.sf, params.osr, params.scale)
-    cfo_resid = estimate_preamble_planar(
-        yr[..., :pre_len], yi[..., :pre_len], n, osr, phase_step=pps)
-    mag2, sync_word, cfo, time_offset = demodulate_spectrum_planar(
-        yr[..., pre_len:], yi[..., pre_len:], params,
-        known_offsets=(cfo_resid, torch.zeros_like(cfo_resid)),
-        dec_phase=dec_phase,
-    )
+    pps = _phase_step(params, tx_phase_step)
+    if pre_acc == 1:
+        cfo_resid = estimate_preamble_planar(
+            yr[..., :pre_len], yi[..., :pre_len], n, osr, phase_step=pps)
+        mag2, sync_word, cfo, time_offset = demodulate_spectrum_planar(
+            yr[..., pre_len:], yi[..., pre_len:], params,
+            known_offsets=(cfo_resid, torch.zeros_like(cfo_resid)),
+            dec_phase=dec_phase,
+        )
+        snr_src = mag2
+    else:
+        # the common-bin estimate locks to the strongest path; its
+        # accumulated spectrum is the combining signature below
+        cfo_resid, sig = estimate_preamble_robust_planar(
+            yr[..., :pre_len], yi[..., :pre_len], n, osr, phase_step=pps,
+            return_acc=True)
+        mag2, sync_word, snr_src = _combine_paths(
+            yr[..., pre_len:], yi[..., pre_len:], sig, params,
+            max_frames, n_payload_symbols, dec_phase)
+        cfo = cfo_resid
+        time_offset = torch.zeros_like(cfo_resid)
     syms = torch.argmax(mag2, dim=-1).to(torch.int32)
     # clock drift over the CONTIGUOUS payload section only
     sro_ppm = estimate_sro_planar(yr[..., pre_len + 2 * step:],
                                   yi[..., pre_len + 2 * step:], params)
+    # the SNR observable keeps the detector's |DFT|² dB convention in
+    # both modes (correlation scores carry a signature-dependent scale)
     blk = BlockFrames(found, start, cfo_bins, syms, sync_word,
-                      cfo, time_offset, _snr_db(mag2, n), sro_ppm)
+                      cfo, time_offset, _snr_db(snr_src, n), sro_ppm)
     if with_spectra:
         return blk, mag2
     return blk
 
 
+def _combine_paths(yr, yi, sig, params: LoraParams, max_frames: int,
+                   n_payload_symbols: int, dec_phase: int):
+    """Noncoherent path combining of the robust mode: the circular
+    cross-correlation of every symbol's |DFT|² with the frame's
+    accumulated preamble spectrum ``sig`` ``[..., K, n]``, through three
+    DFTs (``IDFT(M * conj(S)).real * n``). Phase-free, so the echo's
+    symbol-dependent dechirped phase does not matter, and a fractional
+    CFO shifts signature and symbols alike. Returns the payload scores
+    ``[..., K, S, n]``, the sync word, and the payload |DFT|² (the SNR
+    observable's input)."""
+    n, osr = params.n, params.osr
+    lead = yr.shape[:-2]
+    s_tot = 2 + n_payload_symbols
+    vw_r = yr.reshape(*lead, max_frames, s_tot, n, osr)[..., dec_phase]
+    vw_i = yi.reshape(*lead, max_frames, s_tot, n, osr)[..., dec_phase]
+    m2 = dft_mag2_planar(vw_r, vw_i, n)
+    mr, mi = dft_planar(m2, torch.zeros_like(m2), n)
+    sr_, si_ = dft_planar(sig, torch.zeros_like(sig), n)
+    sr_, si_ = sr_[..., None, :], si_[..., None, :]
+    cr_ = mr * sr_ + mi * si_
+    ci_ = mi * sr_ - mr * si_
+    score, _ = dft_planar(cr_, -ci_, n)
+    sb2 = torch.argmax(score[..., :2, :], dim=-1).to(torch.int32)
+    sync_word = _sync_from_symbols(sb2[..., 0], sb2[..., 1], params.sf)
+    return score[..., 2:, :], sync_word, m2[..., 2:, :]
+
+
 def block_rows(blk: BlockFrames) -> list[dict]:
     """Rows of a 1-D (single-channel) BlockFrames, one dict per found
-    frame; scalar fields are read to the host once, ``symbols`` stays a
-    tensor on the block's device."""
-    host = {f: getattr(blk, f).cpu().tolist()
-            for f in ("found", "start", "cfo_bins", "cfo", "sync", "snr_db",
-                      "sro_ppm")}
-    rows = []
-    for k, ok in enumerate(host["found"]):
-        if not ok:
+    frame; the scalar fields are read to the host in one copy (each is
+    exact in float64), ``symbols`` stays a tensor on the block's device."""
+    found, start, cfo_bins, cfo, sync, snr_db, sro_ppm = torch.stack(
+        [getattr(blk, f).to(torch.float64) for f in
+         ("found", "start", "cfo_bins", "cfo", "sync", "snr_db", "sro_ppm")]).cpu().tolist()
+    return [{"k": k, "start": int(start[k]), "cfo_bins": int(cfo_bins[k]),
+             "cfo": cfo[k], "sync": int(sync[k]), "snr_db": snr_db[k],
+             "sro_ppm": sro_ppm[k], "symbols": blk.symbols[k]}
+            for k, ok in enumerate(found) if ok]
+
+
+# ---------------------------------------------------------------------------
+# Channel activity, blind SF, wideband
+# ---------------------------------------------------------------------------
+
+def cad_planar(xr, xi, params: LoraParams, stride: int = 4,
+               threshold_db: float = -30.0, device=None):
+    """Channel-activity detection, the SX126x CAD primitive (a short
+    listen before talk), batched over ``[..., T]`` planes: every
+    ``stride``-th symbol window is up-dechirped and DFT'd, and a buffer
+    is *active* when a probed window's peak power clears
+    ``threshold_db`` (the detector's dB convention, LoRaDetector.hpp:60-64:
+    0 dB = full-scale chirp). Any chirp, at any CFO, concentrates into one
+    bin; noise and silence spread. ``stride`` is clamped to the window
+    count; a buffer shorter than one symbol gives ``(False, -inf)``.
+    Returns ``(active [...] bool, peak_db [...] float32)``; makes no host
+    read."""
+    xr, xi = as_planes(xr, xi, device)
+    n, osr, step = params.n, params.osr, params.step
+    nwin = xr.shape[-1] // step
+    lead = xr.shape[:-1]
+    dev = xr.device
+    if nwin < 1:                   # sub-symbol input: nothing to listen to
+        return (torch.zeros(lead, dtype=torch.bool, device=dev),
+                torch.full(lead, -math.inf, dtype=torch.float32, device=dev))
+    stride = min(stride, nwin)     # short buffers: probe what exists
+    probe = nwin // stride
+    ar = xr[..., : probe * stride * step].reshape(*lead, probe, stride, step)[..., 0, :]
+    ai = xi[..., : probe * stride * step].reshape(*lead, probe, stride, step)[..., 0, :]
+    dr, di = _downchirp(params, dev)
+    ur = (ar * dr - ai * di).reshape(*lead, probe, n, osr)[..., 0]
+    ui = (ar * di + ai * dr).reshape(*lead, probe, n, osr)[..., 0]
+    _, peak = argmax_bins_planar(ur, ui, n, with_peak=True)
+    peak_db = (10.0 * torch.log10(torch.clamp(peak, min=1e-30))
+               - 20.0 * math.log10(n))
+    best = peak_db.amax(dim=-1)
+    return best >= float(np.float32(threshold_db)), best
+
+
+def receive_blind_planar(xr, xi, base_params: LoraParams,
+                         n_payload_symbols: int,
+                         sfs=(7, 8, 9, 10, 11, 12), max_frames: int = 4,
+                         preamble_len: int = 8,
+                         min_power_db: float | None = -30.0,
+                         pre_acc: int = 1, device=None) -> dict:
+    """Blind spreading-factor receive: the block receiver at every
+    candidate SF over the same ``[..., T]`` planes, ``{sf: BlockFrames}``.
+    Dechirping with the wrong SF's downchirp spreads a chirp's energy, so
+    the preamble run and the SFD test fire only at the true SF (and
+    ``min_power_db`` gates the rest). SFs whose symbol period cannot hold
+    a preamble and SFD inside ``T`` are left out. ``n_payload_symbols``
+    is SF-independent in the simple chain (2 symbols per byte)."""
+    xr, xi = as_planes(xr, xi, device)
+    out = {}
+    t = xr.shape[-1]
+    for sf in sfs:
+        p = dataclasses.replace(base_params, sf=sf)
+        if t // p.step < preamble_len + 4:       # preamble + SFD can't fit
             continue
-        rows.append({
-            "k": k,
-            "start": host["start"][k],
-            "cfo_bins": host["cfo_bins"][k],
-            "cfo": host["cfo"][k],
-            "sync": host["sync"][k],
-            "snr_db": host["snr_db"][k],
-            "sro_ppm": host["sro_ppm"][k],
-            "symbols": blk.symbols[k],
-        })
+        out[sf] = receive_block_planar(
+            xr, xi, p, n_payload_symbols, max_frames, preamble_len,
+            min_power_db, pre_acc=pre_acc)
+    return out
+
+
+def blind_frames(results: dict) -> list[dict]:
+    """:func:`receive_blind_planar`'s result as a list of found frames
+    sorted by (leading index, start, sf): dicts with ``sf``, ``index``
+    (the leading-dim tuple, () for 1-D), ``k``, ``start``, ``sync``,
+    ``cfo_bins``, ``snr_db``, ``sro_ppm`` and the ``symbols`` row (a
+    tensor on the results' device). One host copy per SF."""
+    rows = []
+    for sf, blk in results.items():
+        fields = ("start", "sync", "cfo_bins", "snr_db", "sro_ppm")
+        found = blk.found.reshape(-1)
+        flat = torch.nonzero(found).reshape(-1)
+        host = torch.stack([getattr(blk, f).reshape(-1)[flat].to(torch.float64)
+                            for f in fields] + [flat.to(torch.float64)]).cpu().tolist()
+        symbols = blk.symbols.reshape(-1, blk.symbols.shape[-1])
+        for j, pos in enumerate(host[-1]):
+            pos = int(pos)
+            idx = np.unravel_index(pos, tuple(blk.found.shape))
+            rows.append({
+                "sf": sf,
+                "index": tuple(int(i) for i in idx[:-1]),
+                "k": int(idx[-1]),
+                "start": int(host[0][j]),
+                "sync": int(host[1][j]),
+                "cfo_bins": int(host[2][j]),
+                "snr_db": float(np.float32(host[3][j])),
+                "sro_ppm": float(np.float32(host[4][j])),
+                "symbols": symbols[pos],
+            })
+    rows.sort(key=lambda r: (r["index"], r["start"], r["sf"]))
     return rows
+
+
+def receive_wideband_planar(xr, xi, k: int, params: LoraParams,
+                            n_payload_symbols: int, max_frames: int = 4,
+                            preamble_len: int = 8, taps_per_branch: int = 7,
+                            min_power_db: float | None = -30.0,
+                            pre_acc: int = 1,
+                            tx_phase_step: float | None = None,
+                            with_spectra: bool = False, device=None):
+    """The wideband receiver: polyphase-channelize ``[..., T]`` planes
+    into ``k`` sub-channels (:func:`..ops.channelizer.channelize_planar`)
+    and run the block receiver on every channel in the same call.
+    Returns :class:`BlockFrames` with a leading channel axis ``[..., k,
+    max_frames]`` (and the spectra with ``with_spectra``).
+    ``min_power_db`` (default -30 dB, the Pothos demod examples' thresh)
+    keeps quiet channels from syncing on silence or stopband leakage."""
+    from ..ops.channelizer import channelize_planar
+
+    cr, ci = channelize_planar(xr, xi, k, taps_per_branch, device=device)
+    return receive_block_planar(cr, ci, params, n_payload_symbols,
+                                max_frames, preamble_len,
+                                min_power_db=min_power_db, pre_acc=pre_acc,
+                                tx_phase_step=tx_phase_step,
+                                with_spectra=with_spectra)

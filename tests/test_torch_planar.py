@@ -14,11 +14,10 @@ outputs carry stated tolerances:
   the peak further).
 * At osr > 1 the estimator picks the osr phase of greatest power by
   exact float equality (``p == maxp``, src/phy/LoRaDemod.cpp:85-135). A
-  clean tone can tie exactly across phases in XLA's sums and not in
-  torch's (ROADMAP.md Queue 3); the osr phase, and with it cfo and
-  time_offset, may then differ. That is accepted only where JAX's
-  powers tie exactly and the port's lie within 1e-5 dB — decisions stay
-  bit-equal either way.
+  clean tone ties exactly across phases in XLA's sums; the port compares
+  the powers recomputed in float64 at the peak bin
+  (``modem._tie_power_db``), so the tie holds and cfo / time_offset are
+  JAX's on every golden cell (``sf7_bw250000_osr2_win0`` included).
 """
 
 import numpy as np
@@ -35,7 +34,6 @@ from lora_phy_tpu_torch.ops import planar as tplanar
 DECHIRP_ATOL = 1.3e-7
 CFO_ATOL = 1e-6
 TO_ATOL = 2e-3
-OSR_TIE_DB = 1e-5
 
 
 def _golden(path):
@@ -45,21 +43,10 @@ def _golden(path):
 
 
 def _assert_offsets_match(p, xr, xi, got, ref):
-    """cfo / time_offset of port vs JAX on the same planes, or the
-    documented osr-phase power tie (module docstring)."""
-    cfo_ok = abs(float(got.cfo) - float(ref.cfo)) <= CFO_ATOL
-    to_ok = abs(float(got.time_offset) - float(ref.time_offset)) <= TO_ATOL
-    if cfo_ok and to_ok:
-        return
-    assert p.osr > 1, "offsets differ at osr 1"
-    n, step = p.n, p.step
-    view = lambda a: a[: 2 * step].reshape(2, n, p.osr).swapaxes(-1, -2)
-    jpow = nn(jplanar.detect_planar(view(xr), view(xi), n).power)      # [2, osr]
-    tpow = nn(tplanar.detect_planar(tt(view(xr)), tt(view(xi)), n).power)
-    tied = (jpow == jpow.max(-1, keepdims=True)).sum(-1) > 1
-    assert tied.any(), "offsets differ without an exact osr-phase tie in JAX"
-    spread = np.abs(tpow - jpow)[tied].max()
-    assert spread <= OSR_TIE_DB, f"port powers {spread:.2e} dB off the tie"
+    """cfo / time_offset of port vs JAX on the same planes."""
+    assert abs(float(got.cfo) - float(ref.cfo)) <= CFO_ATOL, (got.cfo, ref.cfo)
+    assert abs(float(got.time_offset) - float(ref.time_offset)) <= TO_ATOL, \
+        (got.time_offset, ref.time_offset)
 
 
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)

@@ -326,15 +326,19 @@ def test_circular_extraction_matches_barrel_path(streams, monkeypatch):
 
 
 def test_pre_acc_not_ported():
+    """pre_acc 2..3 runs (silence: no frame); values outside 1..3 raise
+    ValueError, as in JAX (the robust mode's parity cases are in
+    tests/test_torch_sync_modes.py)."""
     p = tparams(LoraParams(sf=7))
     x = torch.zeros(1, 40 * p.step)
     for pre_acc in (2, 3):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsync.receive_block_planar(x, x, p, 8, pre_acc=pre_acc)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert not tsync.receive_block_planar(x, x, p, 8, pre_acc=pre_acc).found.any()
+        assert not tsync.frame_sync_scan_planar(x, x, p, pre_acc=pre_acc).valid.any()
+    for pre_acc in (0, 4):
+        with pytest.raises(ValueError, match="pre_acc"):
             tsync.frame_sync_scan_planar(x, x, p, pre_acc=pre_acc)
-    with pytest.raises(ValueError, match="pre_acc"):
-        tsync.frame_sync_scan_planar(x, x, p, pre_acc=4)
+        with pytest.raises(ValueError, match="pre_acc"):
+            tsync.receive_block_planar(x, x, p, 8, pre_acc=pre_acc)
 
 
 # ---------------------------------------------------------------------------
