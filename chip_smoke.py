@@ -79,20 +79,48 @@ Imports no JAX. Phases, one line each (or a few):
 13. SIC at lora-rx-stream --sic's settings (SF7, 65,536-sample blocks,
    max_frames 8): two overlapping frames at sic_sweep.py's gaps of 3-15 dB, 20
    dB SNR (numpy noise), weak-frame recovery per gap and host ms per peel; one
-   profile; the card's frame lists against the CPU's on one trial per gap.
+   profile; the card's frame lists against the CPU's on one trial per gap;
+14. the command line (lora_phy_tpu_torch.runners) on the card: tx_stream
+   writes 4096 frames of 16-byte SF7 payloads (gap 1024) as cf32 and as
+   ci16, rx_stream reads each in 65,536-sample blocks (--max-frames=16: a
+   buffer holds up to 10.7 frames): every frame once at its true start
+   with its bytes; wall s, frames/s, host ms per block, beside
+   receive_block_planar alone over the same buffers; --adaptive and
+   --adaptive --soft over 256 tx_stream --coded --crc frames of 1-255
+   bytes (all crc=ok); --channels=8 over phase 11's wideband traffic as
+   cf32 (all 4096 frames); a real shell pipe `python -m ...tx_stream |
+   python -m ...rx_stream` in which neither process imports jax or
+   lora_phy_tpu; a checkpoint written by the card run resumed with
+   --device=cpu; --robust, --sf=auto, --sic, --cad and --soft against the
+   port's own --device=cpu run; --mesh refused (exit 1); gr_interop frames
+   (SF7 explicit, SF12 LDRO implicit, hard and soft) equal on card and CPU;
+   tx_runner / rx_runner and gr_decode on the card against the CPU;
+15. the AWGN Monte Carlo (models.awgn.simulate_planar) at sweep scale: SF7
+   CR 4/5 with 65,536 packets of 16 bytes per point and SF12 with 4096,
+   over -20..0 dB in 2 dB steps plus 12 and -25 dB: device ms and
+   packets/s per point, peak memory, a profile of one point; PER 0 at 12
+   dB, above 0.5 at -25 dB, weakly monotone; a 256-packet prefix with the
+   same injected draws, at the point nearest PER 0.5, gives the same error
+   counts on the card and the CPU; awgn_sweep's default run and its CSV
+   header.
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
 SIC loop and the blind receiver's six SFs (phases 12-13).
-Then a JSON line of the kernels and, last, ``{"ok": true, "device": ...}``.
+Phases 14-15 write their streams to a temporary directory. Then a JSON
+line of the kernels and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
 
+import contextlib
+import io
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -122,8 +150,21 @@ TWO_RAY_TRIALS, TWO_RAY_SNR_DB = 15, 5.0
 # SIC at lora-rx-stream --sic's settings and sic_sweep.py's collisions
 SIC_GAPS_DB, SIC_SNR_DB, SIC_TRIALS = (3.0, 6.0, 9.0, 12.0, 15.0), 20.0, 8
 SIC_BLOCK, SIC_MAX_FRAMES, SIC_PAYLOAD = 65536, 8, 6
-GOLDEN_TIE = (pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "golden"
-              / "sf7_bw250000_osr2_win0.npz")
+REPO = pathlib.Path(__file__).resolve().parent
+GOLDEN_TIE = REPO / "tests" / "fixtures" / "golden" / "sf7_bw250000_osr2_win0.npz"
+# the command line (phase 14): frames, payload bytes, gap samples and block
+# size of tx_stream / rx_stream at their defaults' width; the gateway
+# mode's coded frames, the shell pipe's frames, the small streams of the
+# card-against-CPU checks
+CLI_FRAMES, CLI_PAYLOAD, CLI_GAP, CLI_BLOCK = 4096, 16, 1024, 65536
+# frames a receive buffer (carry ++ block) can hold at that gap: 10.7, over
+# rx_stream's default --max-frames=8, which drops the rest (as the JAX twin)
+CLI_MAX_FRAMES = 16
+CLI_CODED_FRAMES, CLI_PIPE_FRAMES, CLI_SMALL_FRAMES = 256, 256, 16
+# the AWGN Monte Carlo (phase 15): (SF, packets per point) at CR 4/5 and
+# 16-byte payloads, the SNR points (dB), the card-against-CPU prefix
+AWGN_CELLS, AWGN_PAYLOAD, AWGN_PREFIX = ((7, 65536), (12, 4096)), 16, 256
+AWGN_SNRS = tuple(float(s) for s in range(-20, 1, 2))
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor
 # cores, HBM bandwidth
 PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -301,6 +342,11 @@ def main():
     del xr, xi
     torch.cuda.empty_cache()
     other.update(phase13_sic(dev, card))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        other.update(phase14_cli(dev, card, pathlib.Path(tmp)))
+        torch.cuda.empty_cache()
+        other["awgn"] = phase15_awgn(dev, card, pathlib.Path(tmp))
 
     check("jax" not in sys.modules, "the port imported JAX")
     # the new paths reach no kernel of the port (none is a Pallas kernel in
@@ -1126,6 +1172,468 @@ def phase13_sic(dev, card):
                  f"phase 13: {card}: receive_sic_planar, one {SIC_BLOCK}-sample block, "
                  f"two frames", calls=3)
     return {"sic": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the command line on the card
+# ---------------------------------------------------------------------------
+
+def run_main(main_fn, args):
+    """``main_fn(args)`` with stdout and stderr captured: (rc, out, err,
+    host seconds)."""
+    out, err = (io.TextIOWrapper(io.BytesIO(), encoding="utf-8", write_through=True)
+                for _ in range(2))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main_fn(list(args))
+        except SystemExit as e:
+            rc = e.code
+    dt = time.perf_counter() - t0
+    return rc, out.buffer.getvalue().decode(), err.buffer.getvalue().decode(), dt
+
+
+def frame_fields(line):
+    """(start, {key: value}) of a receiver's text line."""
+    toks = line.split()
+    at = [t for t in toks if t.startswith("@")][0]
+    return int(at[1:].rstrip(":")), dict(t.split("=", 1) for t in toks if "=" in t)
+
+
+def same_lines(a, b, label):
+    """Two receivers' stdout lines agree one for one: every decision field
+    exactly; the printed snr / sro within one printed digit (0.1: the
+    values agree within 1e-2 dB and 0.05 ppm); margin= within one printed
+    digit plus 1e-4 relative."""
+    la, lb = a.splitlines(), b.splitlines()
+    check(len(la) == len(lb), f"{label}: {len(la)} lines against {len(lb)}")
+    for x, y in zip(la, lb):
+        (sx, fx), (sy, fy) = frame_fields(x), frame_fields(y)
+        ok = sx == sy and fx.keys() == fy.keys()
+        for key in fx if ok else ():
+            if key in ("snr", "sro"):
+                unit = "dB" if key == "snr" else "ppm"
+                ok &= abs(float(fx[key][:-len(unit)]) - float(fy[key][:-len(unit)])) <= 0.1 + 1e-9
+            elif key == "margin":
+                ok &= abs(float(fx[key]) - float(fy[key])) <= 0.1 + 1e-4 * abs(float(fy[key]))
+            else:
+                ok &= fx[key] == fy[key]
+        check(ok, f"{label}: {x!r} against {y!r}")
+
+
+def write_cf32(path, re, im):
+    """Planes (tensors) -> an interleaved cf32 file through the runtime."""
+    from lora_phy_tpu_torch import runtime
+
+    runtime.from_planar(re.cpu().numpy(), im.cpu().numpy()).tofile(path)
+
+
+def check_cli_frames(out, err, truth, label):
+    """Every frame of ``truth`` [(start, payload hex)] reported once, in
+    order, at its true start with its bytes; the count on stderr."""
+    got = [(frame_fields(l)[0], l.split("payload=")[1]) for l in out.splitlines()]
+    bad = [k for k, (g, t) in enumerate(zip(got, truth)) if g != t]
+    check(len(got) == len(truth) and not bad,
+          f"{label}: {len(got)} frames reported for {len(truth)}; first mismatch "
+          f"{bad[:1] or 'count'}")
+    check(f"{len(truth)} frames" in err, f"{label}: stderr says {err.strip()!r}")
+
+
+def phase14_cli(dev, card, tmp):
+    """The port's runners on the card (tx_stream / rx_stream in this
+    process, a shell pipe in two): returns the kernel launch counts."""
+    from lora_phy_tpu_torch.runners import rx_stream, tx_stream
+
+    p = LoraParams(sf=7)
+    rng = np.random.RandomState(14)
+    launches = {}
+    dev_flag = f"--device={dev}"
+    blk = f"--block={CLI_BLOCK}"
+    maxf = f"--max-frames={CLI_MAX_FRAMES}"
+
+    # 1-2: the block path at bench width, cf32 and ci16
+    pays = rng.randint(0, 256, (CLI_FRAMES, CLI_PAYLOAD)).astype(np.uint8)
+    plist = tmp / "payloads.txt"
+    plist.write_text("".join(x.tobytes().hex() + "\n" for x in pays))
+    period = CLI_GAP + stream.frame_overhead_samples(p) + 2 * CLI_PAYLOAD * p.step
+    truth = [(CLI_GAP + k * period, x.tobytes().hex()) for k, x in enumerate(pays)]
+    for fmt in ("cf32", "ci16"):
+        path = tmp / f"stream_{fmt}.iq"
+        rc, _, err, t_tx = run_main(tx_stream.main, [
+            f"--payloads={plist}", f"--out={path}", f"--gap={CLI_GAP}",
+            f"--format={fmt}", dev_flag])
+        check(rc == 0, f"phase 14 tx_stream {fmt}: rc {rc}: {err}")
+        n_samples = CLI_FRAMES * period
+        torch.cuda.synchronize()
+        fused.LAUNCHES = 0
+        rc, out, err, t_rx = run_main(rx_stream.main, [
+            f"--in={path}", f"--format={fmt}", "--payload-len=16", blk, maxf, dev_flag])
+        torch.cuda.synchronize()
+        launches[f"cli_block_{fmt}"] = fused.LAUNCHES
+        check(rc == 0, f"phase 14 rx_stream {fmt}: rc {rc}: {err}")
+        check_cli_frames(out, err, truth, f"phase 14 rx_stream {fmt}")
+        n_blocks = -(-n_samples // CLI_BLOCK)
+        print(f"phase 14: {card}: tx_stream --format={fmt}: {CLI_FRAMES} frames of "
+              f"{CLI_PAYLOAD} bytes, gap {CLI_GAP}, {n_samples} samples in {t_tx:.2f} s; "
+              f"rx_stream over it in {CLI_BLOCK}-sample blocks: all {CLI_FRAMES} frames once "
+              f"at their true starts with their bytes; {t_rx:.2f} s wall, "
+              f"{CLI_FRAMES / t_rx:.0f} frames/s, {n_samples / t_rx / 1e6:.2f} Msamples/s, "
+              f"{t_rx / n_blocks * 1e3:.2f} ms host per block ({n_blocks} blocks); "
+              f"fused_demod launches {launches[f'cli_block_{fmt}']}", flush=True)
+
+    # the receiver alone on the same buffers (carry ++ block, device-resident):
+    # what the CLI adds is ingest, the H2D copy and the report loop
+    from lora_phy_tpu_torch import runtime
+
+    re, im = runtime.read_iq_file(tmp / "stream_cf32.iq")
+    carry = stream.frame_overhead_samples(p) + 2 * CLI_PAYLOAD * p.step + p.step
+    xr = torch.cat([torch.zeros(carry), torch.from_numpy(re)]).to(dev)
+    xi = torch.cat([torch.zeros(carry), torch.from_numpy(im)]).to(dev)
+    bufs = [(xr[off: off + carry + CLI_BLOCK], xi[off: off + carry + CLI_BLOCK])
+            for off in range(0, re.size, CLI_BLOCK)]
+
+    def library_pass():
+        for br, bi in bufs:
+            sync.receive_block_planar(br, bi, p, 2 * CLI_PAYLOAD, max_frames=CLI_MAX_FRAMES,
+                                      min_power_db=-30.0)
+
+    library_pass()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    library_pass()
+    torch.cuda.synchronize()
+    t_lib = time.perf_counter() - t0
+    print(f"phase 14: {card}: receive_block_planar alone over the same {len(bufs)} buffers "
+          f"(device-resident, one sync at the end): {t_lib:.2f} s, "
+          f"{CLI_FRAMES / t_lib:.0f} frames/s, {t_lib / len(bufs) * 1e3:.2f} ms per block",
+          flush=True)
+    mid = bufs[len(bufs) // 2]
+    profile_once(lambda: sync.receive_block_planar(*mid, p, 2 * CLI_PAYLOAD,
+                                                   max_frames=CLI_MAX_FRAMES,
+                                                   min_power_db=-30.0),
+                 f"phase 14: {card}: receive_block_planar, one CLI buffer")
+    del xr, xi, bufs, mid
+
+    # 3: the gateway mode over coded frames of 1-255 bytes
+    lengths = rng.randint(1, 256, CLI_CODED_FRAMES)
+    lengths[:2] = 1, 255
+    coded_pays = [rng.randint(0, 256, n).astype(np.uint8) for n in lengths]
+    clist = tmp / "coded.txt"
+    clist.write_text("".join(x.tobytes().hex() + "\n" for x in coded_pays))
+    cpath = tmp / "coded.iq"
+    rc, _, err, _ = run_main(tx_stream.main, [f"--payloads={clist}", f"--out={cpath}",
+                                              "--coded", "--crc", "--cr=1", dev_flag])
+    check(rc == 0, f"phase 14 tx_stream --coded: rc {rc}: {err}")
+    for extra in ([], ["--soft"]):
+        label = f"phase 14 --adaptive{' --soft' if extra else ''}"
+        torch.cuda.synchronize()
+        fused.LAUNCHES = 0
+        rc, out, err, t_rx = run_main(rx_stream.main, [
+            f"--in={cpath}", "--adaptive", blk, dev_flag] + extra)
+        launches["cli_adaptive" + ("_soft" if extra else "")] = fused.LAUNCHES
+        lines = out.splitlines()
+        check(rc == 0 and len(lines) == CLI_CODED_FRAMES, f"{label}: rc {rc}, "
+              f"{len(lines)} frames of {CLI_CODED_FRAMES}")
+        check(all("crc=ok" in l for l in lines), f"{label}: a CRC failed")
+        check([l.split("payload=")[1] for l in lines] == [x.tobytes().hex() for x in coded_pays],
+              f"{label}: payloads differ")
+        print(f"{label}: {card}: {CLI_CODED_FRAMES} tx_stream --coded --crc frames of 1-255 "
+              f"bytes: all once, crc=ok, bytes exact; {t_rx:.2f} s wall, "
+              f"{CLI_CODED_FRAMES / t_rx:.1f} frames/s, {t_rx / CLI_CODED_FRAMES * 1e3:.2f} ms "
+              f"per frame", flush=True)
+
+    # 4: --channels=8 over phase 11's wideband traffic written as cf32
+    k = WIDEBAND_K
+    xr_c, xi_c, wpay, wperiod = block_stream(dev, p, k, BLOCK_FRAMES)
+    wr, wi = channelizer.synthesize_channels_planar(xr_c, xi_c, k, WIDEBAND_TAPS)
+    del xr_c, xi_c
+    wpath = tmp / "wideband.iq"
+    write_cf32(wpath, wr, wi)
+    n_wide = wr.numel()
+    del wr, wi
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    rc, out, err, t_rx = run_main(rx_stream.main, [
+        f"--in={wpath}", "--payload-len=16", f"--channels={k}", f"--taps={WIDEBAND_TAPS}",
+        blk, dev_flag])
+    torch.cuda.synchronize()
+    launches["cli_wideband"] = fused.LAUNCHES
+    check(rc == 0, f"phase 14 --channels: rc {rc}: {err}")
+    wpay = wpay.cpu().numpy()
+    per_ch = {c: [] for c in range(k)}
+    for line in out.splitlines():
+        at, f = frame_fields(line)
+        c = int(f["ch"])
+        check(f["payload"] == wpay[c].tobytes().hex(), f"phase 14 --channels: {line!r}")
+        per_ch[c].append(at)
+    for c, starts in per_ch.items():
+        want = [m * wperiod * k for m in range(BLOCK_FRAMES)]
+        check(len(starts) == BLOCK_FRAMES and all(abs(a - b) <= k for a, b in zip(starts, want)),
+              f"phase 14 --channels: channel {c}: {len(starts)} frames, starts "
+              f"{starts[:3]} against {want[:3]}")
+    check(f"{k * BLOCK_FRAMES} frames" in err, f"phase 14 --channels: {err.strip()!r}")
+    n_blocks = -(-n_wide // CLI_BLOCK)
+    print(f"phase 14: {card}: rx_stream --channels={k} --taps={WIDEBAND_TAPS} over "
+          f"{n_wide} wideband samples ({k} x {BLOCK_FRAMES} frames): all {k * BLOCK_FRAMES} "
+          f"frames once, each with its channel's bytes, at its channel start x {k}; "
+          f"{t_rx:.2f} s wall, {k * BLOCK_FRAMES / t_rx:.0f} frames/s, "
+          f"{t_rx / n_blocks * 1e3:.2f} ms host per block; fused_demod launches "
+          f"{launches['cli_wideband']}", flush=True)
+    wpath.unlink()
+
+    # 5: a real shell pipe, tx_stream | rx_stream, two processes of their own
+    n_pipe = CLI_PIPE_FRAMES
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    py = sys.executable
+    cmd = (f"{py} -X importtime -m lora_phy_tpu_torch.runners.tx_stream --payloads=- "
+           f"--gap={CLI_GAP} --format=ci16 {dev_flag} | {py} -X importtime -m "
+           f"lora_phy_tpu_torch.runners.rx_stream --format=ci16 --payload-len=16 {maxf} "
+           f"{dev_flag}")
+    pipe_in = "".join(plist.read_text().splitlines(True)[:n_pipe])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, shell=True, input=pipe_in, env=env, cwd=tmp,
+                          capture_output=True, text=True, timeout=600)
+    t_pipe = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 14 pipe: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    check_cli_frames(proc.stdout, proc.stderr, truth[:n_pipe], "phase 14 pipe")
+    mods = {l.rsplit("|", 1)[1].strip() for l in proc.stderr.splitlines()
+            if l.startswith("import time:") and "|" in l}
+    check("lora_phy_tpu_torch.runners._cli" in mods, "phase 14 pipe: no import report")
+    jaxy = sorted(m for m in mods if m.split(".")[0] in ("jax", "lora_phy_tpu"))
+    check(not jaxy, f"phase 14 pipe: the runners imported {jaxy[:5]}")
+    print(f"phase 14: {card}: shell pipe python -m ...tx_stream | python -m ...rx_stream "
+          f"{dev_flag}, {n_pipe} frames as ci16 through stdin: all decoded at their true "
+          f"starts; neither process imported jax or lora_phy_tpu ({len(mods)} modules); "
+          f"{t_pipe:.2f} s wall for both processes", flush=True)
+
+    # 6: a checkpoint written by the card run resumes on the CPU
+    small = truth[:CLI_SMALL_FRAMES]
+    spath = tmp / "stream_cf32.iq"
+    raw = spath.read_bytes()[: (small[-1][0] + period) * 8]
+    cut = (small[len(small) // 2][0] + 400) * 8           # inside a frame
+    (tmp / "small.iq").write_bytes(raw)
+    (tmp / "a.iq").write_bytes(raw[:cut])
+    (tmp / "b.iq").write_bytes(raw[cut:])
+    ck = tmp / "ck.npz"
+    args = ["--payload-len=16", "--block=8192"]
+    rc_full, full, _, _ = run_main(rx_stream.main, [f"--in={tmp / 'small.iq'}"] + args
+                                   + [dev_flag])
+    rc_a, out_a, _, _ = run_main(rx_stream.main, [f"--in={tmp / 'a.iq'}", f"--checkpoint={ck}"]
+                                 + args + [dev_flag])
+    rc_b, out_b, err_b, _ = run_main(rx_stream.main, [f"--in={tmp / 'b.iq'}",
+                                                      f"--checkpoint={ck}"] + args
+                                     + ["--device=cpu"])
+    check(rc_full == rc_a == rc_b == 0, "phase 14 checkpoint: a run failed")
+    n_a = len(out_a.splitlines())
+    same_lines(out_b, "\n".join(full.splitlines()[n_a:]), "phase 14 checkpoint card -> CPU")
+    check_cli_frames(out_a + out_b, err_b, small, "phase 14 checkpoint card -> CPU")
+    print(f"phase 14: a checkpoint written mid-frame by the card run ({n_a} frames) resumes "
+          f"on --device=cpu: the remaining {len(small) - n_a} lines equal the card's own "
+          f"full run, {len(small)} frames in all", flush=True)
+
+    # 7: the other block modes, the card's lines against the CPU's
+    xr_b, xi_b, _ = blind_stream(dev, 8, seed=14)
+    write_cf32(tmp / "blind.iq", xr_b, xi_b)
+    sic_r, sic_i, _, _ = sic_trial(dev, p, 9.0, np.random.RandomState(15))
+    write_cf32(tmp / "sic.iq", sic_r, sic_i)
+    modes = [("--robust", [f"--in={tmp / 'small.iq'}", "--payload-len=16", "--robust", maxf],
+              16),
+             ("--sf=auto", [f"--in={tmp / 'blind.iq'}", "--payload-len=8", "--sf=auto"], 6),
+             ("--sic", [f"--in={tmp / 'sic.iq'}", f"--payload-len={SIC_PAYLOAD}", "--sic"], 2),
+             ("--cad", [f"--in={tmp / 'small.iq'}", "--payload-len=16", "--cad",
+                        "--block=8192"], 16),
+             ("--soft", [f"--in={tmp / 'small.iq'}", "--payload-len=16", "--soft", maxf], 16)]
+    launches["cli_modes"] = 0
+    for name, margs, want in modes:
+        torch.cuda.synchronize()
+        fused.LAUNCHES = 0
+        rc_c, out_c, err_c, t_c = run_main(rx_stream.main, margs + [dev_flag])
+        torch.cuda.synchronize()
+        launches["cli_modes"] += fused.LAUNCHES
+        rc_h, out_h, err_h, _ = run_main(rx_stream.main, margs + ["--device=cpu"])
+        check(rc_c == rc_h == 0, f"phase 14 {name}: rc {rc_c} / {rc_h}")
+        same_lines(out_c, out_h, f"phase 14 {name} card vs CPU")
+        check(len(out_c.splitlines()) == want and err_c == err_h,
+              f"phase 14 {name}: {len(out_c.splitlines())} frames, want {want}; "
+              f"{err_c.strip()!r} / {err_h.strip()!r}")
+        print(f"phase 14: {card}: rx_stream {name}: {want} frames, the card's lines equal "
+              f"the CPU's (decisions exact, snr/sro within a printed digit); {t_c:.2f} s "
+              f"wall on the card", flush=True)
+
+    # 8: --mesh is not ported yet
+    rc, out, err, _ = run_main(rx_stream.main, [f"--in={tmp / 'small.iq'}", "--mesh=2",
+                                                dev_flag])
+    check(rc == 1 and out == "" and "not ported" in err, f"phase 14 --mesh: rc {rc}, {err!r}")
+    print("phase 14: rx_stream --mesh=2 refuses (not ported yet): exit 1, one line",
+          flush=True)
+
+    # 9: gr-lora_sdr interop frames on the card against the CPU
+    from lora_phy_tpu_torch.models import gr_interop
+
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    for sf, ldro, implicit in ((7, False, False), (12, True, True)):
+        pg = LoraParams(sf=sf)
+        payload = b"hello world: %d" % sf
+        z = torch.zeros(3 * pg.step, dtype=torch.complex64, device=dev)
+        sig = torch.cat([z, gr_interop.encode_frame(payload, pg, cr=2, ldro=ldro,
+                                                    implicit=implicit, device=dev), z])
+        kw = dict(length=len(payload), cr=2, crc=True) if implicit else {}
+        for soft in (False, True):
+            on_card, on_cpu = (gr_interop.decode_frame(x, pg, ldro=ldro, implicit=implicit,
+                                                       soft=soft, tx_phase_step=None, **kw)
+                               for x in (sig, sig.cpu()))
+            check(on_card is not None and on_card.payload == payload and on_card.crc_ok
+                  and vars(on_card) == vars(on_cpu),
+                  f"phase 14 gr interop SF{sf} soft={soft}: {on_card} / {on_cpu}")
+    torch.cuda.synchronize()
+    launches["gr_interop"] = fused.LAUNCHES
+    print("phase 14: gr_interop encode_frame -> decode_frame on the card, SF7 explicit and "
+          "SF12 LDRO implicit, hard and soft: bytes exact, crc_ok, every field equal to the "
+          "CPU's", flush=True)
+
+    # 10: tx_runner / rx_runner and gr_decode, the card's output against the CPU's
+    from lora_phy_tpu_torch.runners import gr_decode, rx_runner, tx_runner
+
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    for flags in ([], ["--sf=9", "--bw=250000", "--osr=2"]):
+        files = {}
+        for d in (dev_flag, "--device=cpu"):
+            files[d] = tmp / f"tx{len(files)}.iq"
+            rc, _, err, _ = run_main(tx_runner.main, ["--payload=deadbeefcafe",
+                                                      f"--out={files[d]}", d] + flags)
+            check(rc == 0, f"phase 14 tx_runner {flags}: {err}")
+        check(files[dev_flag].read_bytes() == files["--device=cpu"].read_bytes(),
+              f"phase 14 tx_runner {flags}: the card's IQ differs from the CPU's")
+        outs = [run_main(rx_runner.main, [f"--in={files[dev_flag]}", d] + flags)
+                for d in (dev_flag, "--device=cpu")]
+        check(outs[0][0] == outs[1][0] == 0 and outs[0][1] == outs[1][1],
+              f"phase 14 rx_runner {flags}: {outs[0][:3]} / {outs[1][:3]}")
+        # BW250 at osr 2 decodes the aliased bins, as the reference binary does
+        check(outs[0][1].strip() == "deadbeefcafe" if not flags
+              else len(outs[0][1].strip()) == 12, f"phase 14 rx_runner: {outs[0][1]!r}")
+    # two frames in gr-lora_sdr's convention (each symbol chirp from phase 0,
+    # as gr's modulator builds it), which gr_decode's default expects
+    lattice = gr_interop.stream.frame_modulate
+    gr_interop.stream.frame_modulate = (
+        lambda symbols, params, preamble_len=8, **kw: lattice(
+            symbols, params, preamble_len, symbol_phase_carry=False))
+    try:
+        gap = torch.zeros(900, dtype=torch.complex64, device=dev)
+        cap = torch.cat([gap] + [x for k, cr in enumerate((1, 3)) for x in (
+            gr_interop.encode_frame(b"hello world: %d" % k, p, cr=cr, device=dev), gap)])
+    finally:
+        gr_interop.stream.frame_modulate = lattice
+    write_cf32(tmp / "gr.iq", cap.real, cap.imag)
+    outs = [run_main(gr_decode.main, [f"--in={tmp / 'gr.iq'}", d] + extra)
+            for extra in ([], ["--soft"]) for d in (dev_flag, "--device=cpu")]
+    check(all(o[0] == 0 and o[1] == outs[0][1] for o in outs)
+          and outs[0][1].count("crc=ok") == 2 and "hello world: 1" in outs[0][1],
+          f"phase 14 gr_decode: {[o[:2] for o in outs]}")
+    torch.cuda.synchronize()
+    launches["cli_runners"] = fused.LAUNCHES
+    print("phase 14: tx_runner / rx_runner (SF7; SF9 BW250 osr 2) and gr_decode (two gr-"
+          "convention frames, hard and soft) on the card: IQ bytes and printed lines equal "
+          "to the CPU's, both gr frames crc=ok", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the AWGN Monte Carlo on the card
+# ---------------------------------------------------------------------------
+
+def phase15_awgn(dev, card, tmp):
+    """models.awgn's planar Monte Carlo at sweep scale, its gates, the card
+    against the CPU on injected draws, and awgn_sweep's default run;
+    returns the kernel launch count."""
+    from lora_phy_tpu_torch.models import awgn as awgn_model
+    from lora_phy_tpu_torch.runners import awgn_sweep
+
+    launches = 0
+    for sf, packets in AWGN_CELLS:
+        nsym = -(-(AWGN_PAYLOAD * 2 * 5) // sf)                # CR 4/5 bits over sf
+        plane = packets * nsym * (1 << sf)
+        # least traffic of a point that materialises its noise: both noise
+        # planes written once by the generator and read once
+        bound_ms = 2 * 2 * 4 * plane / PEAK_HBM_BYTES * 1e3
+        gen = torch.Generator(device=dev).manual_seed(sf)
+
+        def point(snr):
+            return awgn_model._simulate_point_planar(snr, sf, "4/5", packets, AWGN_PAYLOAD, gen)
+
+        torch.cuda.synchronize()
+        fused.LAUNCHES = 0
+        point(0.0)
+        torch.cuda.reset_peak_memory_stats()
+        pers, rows, times = {}, [], []
+        for snr in AWGN_SNRS + (12.0, -25.0):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            bit_err, pkt_err = point(snr)
+            b.record()
+            b.synchronize()
+            host = time.perf_counter() - t0
+            ms = a.elapsed_time(b)
+            times.append(ms)
+            pers[snr] = int(pkt_err) / packets
+            rows.append(f"{card}: {snr:g} dB PER {pers[snr]:.6f} BER "
+                        f"{int(bit_err) / (packets * AWGN_PAYLOAD * 8):.6f} {ms:.3f} ms")
+            if snr == AWGN_SNRS[0]:
+                first = (ms, host)
+        torch.cuda.synchronize()
+        launches += fused.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(times)
+        check(pers[12.0] == 0.0, f"phase 15 SF{sf}: PER {pers[12.0]} at 12 dB")
+        check(pers[-25.0] > 0.5, f"phase 15 SF{sf}: PER {pers[-25.0]} at -25 dB")
+        sweep = [pers[s] for s in AWGN_SNRS]
+        check(all(x >= y for x, y in zip(sweep, sweep[1:])),
+              f"phase 15 SF{sf}: the waterfall is not monotone: {sweep}")
+        print(f"phase 15: {card}: simulate_planar SF{sf} CR 4/5, {AWGN_PAYLOAD}-byte "
+              f"payloads, {packets} packets x {nsym} symbols x {1 << sf} samples "
+              f"({plane} per plane) per point: median {med:.3f} ms device per point "
+              f"({packets / med * 1e3:.0f} packets/s; first point {first[0]:.3f} ms, host "
+              f"{first[1] * 1e3:.1f} ms); bound {bound_ms:.3f} ms by bytes (the noise planes "
+              f"written and read once); peak memory {peak:.2f} GiB; PER 0 at 12 dB, "
+              f"{pers[-25.0]:.4f} at -25 dB, weakly monotone over {AWGN_SNRS[0]:g}..."
+              f"{AWGN_SNRS[-1]:g} dB", flush=True)
+        for r in rows:
+            print(f"phase 15: SF{sf}:   {r}", flush=True)
+        profile_once(lambda: point(AWGN_SNRS[len(AWGN_SNRS) // 2]),
+                     f"phase 15: {card}: one SF{sf} point", calls=2)
+
+        # the card against the CPU on the same injected draws, at the point
+        # nearest PER 0.5, where the decoders see the most mixed decisions
+        g = torch.Generator(device=dev).manual_seed(100 + sf)
+        payload = torch.randint(0, 256, (AWGN_PREFIX, AWGN_PAYLOAD), generator=g,
+                                dtype=torch.int32, device=dev).to(torch.uint8)
+        shape = (AWGN_PREFIX, nsym, 1 << sf)
+        noise = (torch.randn(shape, generator=g, device=dev),
+                 torch.randn(shape, generator=g, device=dev))
+        snr = min(pers, key=lambda x: abs(pers[x] - 0.5))          # nearest the knee
+        on_card = [int(v) for v in awgn_model._simulate_point_planar(
+            snr, sf, "4/5", AWGN_PREFIX, AWGN_PAYLOAD, payload=payload, noise=noise)]
+        on_cpu = [int(v) for v in awgn_model._simulate_point_planar(
+            snr, sf, "4/5", AWGN_PREFIX, AWGN_PAYLOAD, payload=payload.cpu(),
+            noise=tuple(n.cpu() for n in noise), device="cpu")]
+        check(on_card == on_cpu, f"phase 15 SF{sf}: card {on_card} vs CPU {on_cpu}")
+        print(f"phase 15: SF{sf} at {snr:g} dB, {AWGN_PREFIX} packets with the same injected "
+              f"payloads and noise: bit / packet errors {on_card} on the card and the CPU",
+              flush=True)
+        del noise, payload
+        torch.cuda.empty_cache()
+
+    out = tmp / "awgn_sweep"
+    rc, _, err, t = run_main(awgn_sweep.main, [f"--out={out}", f"--device={dev}"])
+    header = (out / "awgn_sweep.csv").read_text().splitlines()
+    check(rc == 0 and header[0] == "sf,bw,cr,snr_db,ber,per" and len(header) == 1 + 3 * 25,
+          f"phase 15 awgn_sweep: rc {rc}, {header[:1]}, {len(header)} lines: {err}")
+    print(f"phase 15: {card}: awgn_sweep with its default profiles (3 x 25 points of 100 "
+          f"packets): CSV header {header[0]}, {len(header) - 1} rows, {t:.2f} s", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ mirrors its JAX twin file for file:
   ops/coding.py       the coding primitives: Hamming 8/4 and 7/4, parity
                       5/4 and 6/4, Gray, nibbles, bit pack, whiteners,
                       SX1272 CRC16, checksums, diagonal interleavers
-  ops/chirp.py        integer-lattice chirp emitter (table gather / trig)
-                      and the complex modulate_symbols / base_downchirp
+  ops/chirp.py        integer-lattice chirp emitter (table gather / trig),
+                      the complex modulate_symbols / base_downchirp and
+                      the AWGN model chirps
   ops/fft.py          FFT backends (torch.fft, the four-step DFT matmul)
   ops/detect.py       the complex detector (argmax, powers, fractional bin)
   ops/planar.py       planar (re, im) TX, dechirp and demodulation, the
@@ -31,7 +32,17 @@ mirrors its JAX twin file for file:
                       receiver
   models/sic.py       the collision receiver (successive interference
                       cancellation)
+  models/awgn.py      the AWGN Monte Carlo (BER/PER sweeps)
+  models/gr_interop.py  gr-lora_sdr frames: decode and encode
+  runtime.py          ctypes binding to the native ingest runtime
+                      (runtime/lora_runtime.cpp, built with g++)
+  runners/            the command line (python -m
+                      lora_phy_tpu_torch.runners.<name>): tx_runner,
+                      rx_runner, tx_stream, rx_stream, awgn_sweep,
+                      gr_decode
   utils/params.py     LoraParams, Window, Bandwidth (the port's own copy)
+  utils/iqio.py, utils/profiles.py, utils/stats.py
+                      IQ file IO, the profile matrix, Wilson intervals
 
 Functions take tensors and compute on the device those tensors live on;
 functions that create a tensor from nothing take ``device=``, which

@@ -219,3 +219,32 @@ def base_downchirp_planar(sf: int, bw_scale: float = 1.0, osr: int = 1):
                               phase0=0.0, bw_scale=bw_scale)
     return (np.ascontiguousarray(samples.real.astype(np.float32)),
             np.ascontiguousarray(samples.imag.astype(np.float32)))
+
+
+@functools.lru_cache(maxsize=16)
+def _model_up(sf: int) -> np.ndarray:
+    n = 1 << sf
+    idx = np.arange(n, dtype=np.float64)
+    accum = np.cumsum(-math.pi + (2.0 * math.pi * idx) / n)
+    return np.exp(1j * accum).astype(np.complex64)
+
+
+def model_chirps(sf: int, device=None):
+    """The pure-model up/down chirps of the AWGN executable spec
+    (reference: tests/awgn_sweep.py:233-242):
+    ``up = exp(j*cumsum(-pi + 2*pi*n/N))``, ``down = conj(up)``, as
+    complex64 [N] tensors on ``device`` (default: the first CUDA card),
+    built in float64 NumPy as the JAX twin's."""
+    up = _model_up(sf)
+    dev = device_of(None, device)
+    return (torch.from_numpy(up.copy()).to(dev),
+            torch.from_numpy(np.conj(up)).to(dev))
+
+
+@functools.lru_cache(maxsize=16)
+def model_chirps_planar(sf: int):
+    """Planar (re, im float32 NumPy) variant of :func:`model_chirps`."""
+    n = 1 << sf
+    idx = np.arange(n, dtype=np.float64)
+    accum = np.cumsum(-math.pi + (2.0 * math.pi * idx) / n)
+    return (np.cos(accum).astype(np.float32), np.sin(accum).astype(np.float32))
