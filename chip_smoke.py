@@ -92,7 +92,7 @@ Imports no JAX. Phases, one line each (or a few):
    python -m ...rx_stream` in which neither process imports jax or
    lora_phy_tpu; a checkpoint written by the card run resumed with
    --device=cpu; --robust, --sf=auto, --sic, --cad and --soft against the
-   port's own --device=cpu run; --mesh refused (exit 1); gr_interop frames
+   port's own --device=cpu run; gr_interop frames
    (SF7 explicit, SF12 LDRO implicit, hard and soft) equal on card and CPU;
    tx_runner / rx_runner and gr_decode on the card against the CPU;
 15. the AWGN Monte Carlo (models.awgn.simulate_planar) at sweep scale: SF7
@@ -102,13 +102,36 @@ Imports no JAX. Phases, one line each (or a few):
    dB, above 0.5 at -25 dB, weakly monotone; a 256-packet prefix with the
    same injected draws, at the point nearest PER 0.5, gives the same error
    counts on the card and the CPU; awgn_sweep's default run and its CSV
-   header.
+   header;
+16. the flowgraph (models/flowgraph.py): test_flowgraph.py's simulation
+   graph (test_gen, encoder, modulator, numpy-seeded noise, adder,
+   demodulator, decoder, probe) for 16 ticks at SF7 (at the knee) and SF12
+   on the card and on the CPU: the same messages, drop counts and CFO
+   signals, snr within 1e-2 dB; host ms per tick; topology_runner on a
+   .pth the phase writes (topology_doc: a breaker net, a disabled block,
+   signal wires, an implicit decoder with dataLength), its lines equal to
+   --device=cpu's;
+17. the mesh receivers (parallel/) on meshes of shards sharing the card:
+   (a) demodulate_stream_planar over the main path's traffic (8 channels x
+   8192 frames laid end to end, 553.6 M samples) at 1x1, 1x4 and 2x4,
+   payloads bit-exact and symbols equal across meshes, CUDA-event ms with
+   comm=True and comm=False, peak memory; (b) receive_stream_block_planar
+   over phase 5's stream at the same meshes, the single-device receiver's
+   frames, ms and a profile; (c) rx_stream --mesh=1 over phase 14's file,
+   the lines of plain rx_stream, --mesh beyond the cards refused, a mesh
+   checkpoint from the card resumed on the CPU; (d) the mesh's soft
+   spectra against the single device's (2e-5 of the peak), the blind mesh
+   receiver over phase 12's stream, the adaptive one over phase 9's; (e)
+   two gloo processes of two shards each and one NCCL process at world
+   size 1 (this script with --mesh-worker), symbols equal to the single
+   device; (f) bench_scaling --devices=1.
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
-SIC loop and the blind receiver's six SFs (phases 12-13).
-Phases 14-15 write their streams to a temporary directory. Then a JSON
-line of the kernels and, last, ``{"ok": true, "device": ...}``.
+SIC loop and the blind receiver's six SFs (phases 12-13) and the flowgraph.
+Phases 14-17 write their streams to a temporary directory. Then a JSON
+line of the kernels (with the launches counted on each path) and, last,
+``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
 
@@ -165,6 +188,14 @@ CLI_CODED_FRAMES, CLI_PIPE_FRAMES, CLI_SMALL_FRAMES = 256, 256, 16
 # 16-byte payloads, the SNR points (dB), the card-against-CPU prefix
 AWGN_CELLS, AWGN_PAYLOAD, AWGN_PREFIX = ((7, 65536), (12, 4096)), 16, 256
 AWGN_SNRS = tuple(float(s) for s in range(-20, 1, 2))
+# the flowgraph (phase 16): (SF, noise amplitude) of the simulation graph,
+# ticks per run (SF7 at 3.0 sits at the knee: some frames drop)
+FLOW_CASES, FLOW_TICKS = ((7, 3.0), (12, 4.0)), 16
+# the mesh (phase 17): frames per channel of the streaming demod (the main
+# path's), the (channel, time) layouts, frames per channel of the
+# cross-process workers, frames of bench_scaling's one-card row
+MESH_FRAMES, MESH_LAYOUTS = FRAMES, ((1, 1), (1, 4), (2, 4))
+WORKER_FRAMES, SCALING_FRAMES = 1024, 8192
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor
 # cores, HBM bandwidth
 PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -344,9 +375,15 @@ def main():
     other.update(phase13_sic(dev, card))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        other.update(phase14_cli(dev, card, pathlib.Path(tmp)))
+        tmp = pathlib.Path(tmp)
+        cli_launches, cli_truth, cli_out = phase14_cli(dev, card, tmp)
+        other.update(cli_launches)
         torch.cuda.empty_cache()
-        other["awgn"] = phase15_awgn(dev, card, pathlib.Path(tmp))
+        other["awgn"] = phase15_awgn(dev, card, tmp)
+        torch.cuda.empty_cache()
+        other.update(phase16_flowgraph(dev, card, tmp))
+        torch.cuda.empty_cache()
+        other.update(phase17_mesh(dev, card, tmp, cli_truth, cli_out))
 
     check("jax" not in sys.modules, "the port imported JAX")
     # the new paths reach no kernel of the port (none is a Pallas kernel in
@@ -1241,7 +1278,9 @@ def check_cli_frames(out, err, truth, label):
 
 def phase14_cli(dev, card, tmp):
     """The port's runners on the card (tx_stream / rx_stream in this
-    process, a shell pipe in two): returns the kernel launch counts."""
+    process, a shell pipe in two): returns the kernel launch counts, the
+    4096-frame file's truth and rx_stream's lines over its cf32 copy
+    (``tmp / "stream_cf32.iq"``, kept for phase 17)."""
     from lora_phy_tpu_torch.runners import rx_stream, tx_stream
 
     p = LoraParams(sf=7)
@@ -1257,6 +1296,7 @@ def phase14_cli(dev, card, tmp):
     plist.write_text("".join(x.tobytes().hex() + "\n" for x in pays))
     period = CLI_GAP + stream.frame_overhead_samples(p) + 2 * CLI_PAYLOAD * p.step
     truth = [(CLI_GAP + k * period, x.tobytes().hex()) for k, x in enumerate(pays)]
+    cli_lines = {}
     for fmt in ("cf32", "ci16"):
         path = tmp / f"stream_{fmt}.iq"
         rc, _, err, t_tx = run_main(tx_stream.main, [
@@ -1272,6 +1312,7 @@ def phase14_cli(dev, card, tmp):
         launches[f"cli_block_{fmt}"] = fused.LAUNCHES
         check(rc == 0, f"phase 14 rx_stream {fmt}: rc {rc}: {err}")
         check_cli_frames(out, err, truth, f"phase 14 rx_stream {fmt}")
+        cli_lines[fmt] = out
         n_blocks = -(-n_samples // CLI_BLOCK)
         print(f"phase 14: {card}: tx_stream --format={fmt}: {CLI_FRAMES} frames of "
               f"{CLI_PAYLOAD} bytes, gap {CLI_GAP}, {n_samples} samples in {t_tx:.2f} s; "
@@ -1460,13 +1501,6 @@ def phase14_cli(dev, card, tmp):
               f"the CPU's (decisions exact, snr/sro within a printed digit); {t_c:.2f} s "
               f"wall on the card", flush=True)
 
-    # 8: --mesh is not ported yet
-    rc, out, err, _ = run_main(rx_stream.main, [f"--in={tmp / 'small.iq'}", "--mesh=2",
-                                                dev_flag])
-    check(rc == 1 and out == "" and "not ported" in err, f"phase 14 --mesh: rc {rc}, {err!r}")
-    print("phase 14: rx_stream --mesh=2 refuses (not ported yet): exit 1, one line",
-          flush=True)
-
     # 9: gr-lora_sdr interop frames on the card against the CPU
     from lora_phy_tpu_torch.models import gr_interop
 
@@ -1536,7 +1570,7 @@ def phase14_cli(dev, card, tmp):
     print("phase 14: tx_runner / rx_runner (SF7; SF9 BW250 osr 2) and gr_decode (two gr-"
           "convention frames, hard and soft) on the card: IQ bytes and printed lines equal "
           "to the CPU's, both gr frames crc=ok", flush=True)
-    return launches
+    return launches, truth, cli_lines["cf32"]
 
 
 # ---------------------------------------------------------------------------
@@ -1636,5 +1670,503 @@ def phase15_awgn(dev, card, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the flowgraph runtime on the card
+# ---------------------------------------------------------------------------
+
+def topology_doc(noise_db=-30.0):
+    """A Pothos ``.pth`` document in the layout load_topology reads: the
+    simulation chain (test_gen -> pacer -> encoder -> mod -> breaker net
+    "air" -> adder with the noise source -> rotate -> demod -> decoder ->
+    chat box) with the noise amplitude set through a numeric entry, an
+    evaluator and two signal wires; a plotter tap through freq_demod; a
+    disabled source; and an implicit-header chain whose decoder carries
+    ``dataLength``. Globals SF=10, MTU=20, SYNC=0x12 (runners override)."""
+    def block(bid, path, enabled=True, **props):
+        return {"what": "Block", "id": bid, "path": path, "enabled": enabled,
+                "properties": [{"key": k, "value": v} for k, v in props.items()]}
+
+    def wire(src, dst, sk="0", dk="0", enabled=True):
+        return {"what": "Connection", "outputId": src, "outputKey": sk,
+                "inputId": dst, "inputKey": dk, "enabled": enabled}
+
+    def signal(src, dst, sig, slot):
+        return {"what": "Connection", "signalId": src, "slotId": dst,
+                "sigSlots": [[sig, slot]]}
+
+    sf = {"sf": "SF"}
+    objs = [
+        block("TestGen0", "/lora/test_gen"),
+        block("TestGenOff", "/lora/test_gen", enabled=False),
+        block("Pacer0", "/blocks/pacer"),
+        block("Encoder0", "/lora/lora_encoder", cr='"4/8"', explicit="true",
+              crc="true", **sf),
+        block("Mod0", "/lora/lora_mod", sync="SYNC", padding="2", ampl="1.0", **sf),
+        {"what": "Breaker", "id": "BreakTx", "nodeName": "air"},
+        {"what": "Breaker", "id": "BreakRx", "nodeName": "air"},
+        block("NoiseSource1", "/comms/noise_source", ampl="0.0"),
+        block("Adder0", "/comms/arithmetic", operation='"ADD"'),
+        block("Rotate0", "/comms/rotate", phase="pi / 8"),
+        block("Demod0", "/lora/lora_demod", sync="SYNC", thresh="-30.0", **sf),
+        block("Decoder0", "/lora/lora_decoder", cr='"4/8"', explicit="true", **sf),
+        block("ChatBox1", "/widgets/chat_box"),
+        block("NumericEntry0", "/widgets/numeric_entry", value=f"{noise_db:g}"),
+        block("Evaluator0", "/blocks/evaluator", expr='"pow(10, db / 20.0)"',
+              vars='["db"]'),
+        block("FreqDemod0", "/comms/freq_demod"),
+        block("WaveMonitor1", "/plotters/wave_monitor"),
+        block("SnrDisplay", "/widgets/text_display"),
+        block("EncoderImpl", "/lora/lora_encoder", cr='"4/5"', explicit="false",
+              crc="true", **sf),
+        block("ModImpl", "/lora/lora_mod", sync="SYNC", **sf),
+        block("DemodImpl", "/lora/lora_demod", sync="SYNC", **sf),
+        block("DecoderImpl", "/lora/lora_decoder", cr='"4/5"', explicit="false",
+              dataLength="19", **sf),
+        block("ChatImpl", "/widgets/chat_box"),
+        wire("TestGen0", "Pacer0"), wire("TestGenOff", "Pacer0"),
+        wire("Pacer0", "Encoder0"), wire("Encoder0", "Mod0"),
+        wire("Mod0", "BreakTx"), wire("BreakRx", "Adder0", dk="1"),
+        wire("NoiseSource1", "Adder0"), wire("Adder0", "Rotate0"),
+        wire("Rotate0", "Demod0"), wire("Demod0", "Decoder0"),
+        wire("Decoder0", "ChatBox1", dk="in"),
+        wire("Demod0", "FreqDemod0", sk="raw"),
+        wire("FreqDemod0", "WaveMonitor1"),
+        wire("Adder0", "WaveMonitor1", dk="1", enabled=False),
+        signal("NumericEntry0", "Evaluator0", "valueChanged", "setDb"),
+        signal("Evaluator0", "NoiseSource1", "triggered", "setAmplitude"),
+        signal("Demod0", "SnrDisplay", "snr", "setText"),
+        wire("Pacer0", "EncoderImpl"), wire("EncoderImpl", "ModImpl"),
+        wire("ModImpl", "DemodImpl"), wire("DemodImpl", "DecoderImpl"),
+        wire("DecoderImpl", "ChatImpl", dk="in"),
+    ]
+    return {"globals": [{"name": "SF", "value": "10"}, {"name": "MTU", "value": "20"},
+                        {"name": "SYNC", "value": "0x12"}],
+            "pages": [{"graphObjects": objs}]}
+
+
+def sim_topology(device, sf, noise_ampl, seed):
+    """test_flowgraph.py's simulation graph on ``device``: test_gen ->
+    pacer -> encoder (CR 4/8) -> modulator (padding 2) -> + noise (numpy
+    RandomState(seed)) -> demodulator -> decoder -> chat probe, with the
+    demod's snr signal on a display probe."""
+    from lora_phy_tpu_torch.models import flowgraph as fg
+
+    t = fg.Topology(device=device)
+    cfg = coded.CodedConfig(sf=sf, cr=4)
+    p = LoraParams(sf=sf)
+    t.add(fg.make_test_gen("gen"))
+    t.add(fg.make_pacer("pacer"))
+    t.add(fg.make_encoder("enc", cfg))
+    t.add(fg.make_modulator("mod", p, padding=2))
+    noise = t.add(fg.make_noise_source("noise", ampl=noise_ampl, seed=seed))
+    t.add(fg.make_arithmetic("add"))
+    t.add(fg.make_demodulator("demod", p))
+    t.add(fg.make_decoder("dec", cfg))
+    t.add(fg.make_probe("chat"))
+    t.add(fg.make_probe("snr_disp"))
+    for w in (("gen", "0", "pacer", "0"), ("pacer", "0", "enc", "0"), ("enc", "0", "mod", "0"),
+              ("mod", "0", "add", "1"), ("noise", "0", "add", "0"), ("add", "0", "demod", "0"),
+              ("demod", "0", "dec", "0"), ("dec", "0", "chat", "in")):
+        t.connect(*w)
+    t.connect_signal("demod", "snr", "snr_disp", "setFloatValue")
+    # the longest frame of the 16 ticks: 20-byte messages, CRC, CR 4/8
+    nsym = 8 + coded.payload_symbol_count(20, cfg)
+    noise.state["length"] = stream.frame_overhead_samples(p) + (nsym + 4) * p.step
+    return t
+
+
+def flow_summary(log):
+    """(messages, dropped counts, error signals, snr signals) of a run."""
+    msgs = [bytes(o["0"].cpu().numpy()) if o.get("0") is not None else None
+            for o in log["dec"]]
+    return (msgs, [o.get("dropped") for o in log["dec"]],
+            [o.get("error") for o in log["demod"]], [o.get("snr") for o in log["demod"]])
+
+
+def phase16_flowgraph(dev, card, tmp):
+    """The flowgraph runtime on the card against the CPU: the simulation
+    graph for FLOW_TICKS ticks at SF7 and SF12, and topology_runner on a
+    written .pth file. Returns the kernel launch count."""
+    from lora_phy_tpu_torch.runners import topology_runner
+
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    for sf, ampl in FLOW_CASES:
+        sim_topology(dev, sf, ampl, seed=sf).run(1)          # warm-up (plans, handles)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_log = sim_topology(dev, sf, ampl, seed=sf).run(FLOW_TICKS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cpu_log = sim_topology(torch.device("cpu"), sf, ampl, seed=sf).run(FLOW_TICKS)
+        (cm, cd, ce, cs), (hm, hd, he, hs) = flow_summary(card_log), flow_summary(cpu_log)
+        check(cm == hm and cd == hd and ce == he, f"phase 16 SF{sf}: card {cm, cd, ce} "
+              f"against CPU {hm, hd, he}")
+        check(all((a is None) == (b is None) and (a is None or abs(a - b) <= 1e-2)
+                  for a, b in zip(cs, hs)), f"phase 16 SF{sf}: snr {cs} against {hs}")
+        n_ok = sum(m is not None for m in cm)
+        check(n_ok > 0 and all(m == b"lora test message %d" % i
+                               for i, m in enumerate(cm) if m is not None),
+              f"phase 16 SF{sf}: messages {cm}")
+        print(f"phase 16: {card}: flowgraph simulation SF{sf}, noise amplitude {ampl}, "
+              f"{FLOW_TICKS} ticks: {n_ok} messages decoded, dropped {cd[-1]}, equal to the "
+              f"CPU's run (messages, drops, CFO errors; snr within 1e-2 dB); "
+              f"{dt / FLOW_TICKS * 1e3:.1f} ms host per tick on the card", flush=True)
+    pth = tmp / "sim.pth"
+    pth.write_text(json.dumps(topology_doc()))
+    args = [f"--file={pth}", "--ticks=4", "--sf=7"]
+    rc_c, out_c, err_c, t_c = run_main(topology_runner.main, args + [f"--device={dev}"])
+    rc_h, out_h, _, _ = run_main(topology_runner.main, args + ["--device=cpu"])
+    check(rc_c == rc_h == 0, f"phase 16 topology_runner: rc {rc_c} / {rc_h}: {err_c}")
+    lc, lh = out_c.splitlines(), out_h.splitlines()
+    check(len(lc) == len(lh) and all(
+        a == b or (" snr=" in a and a.split()[0] == b.split()[0] and a.split()[2:] == b.split()[2:]
+                   and abs(float(a.split()[1][4:]) - float(b.split()[1][4:])) <= 0.1 + 1e-9)
+        for a, b in zip(lc, lh)), f"phase 16 topology_runner: {lc} against {lh}")
+    check("ChatBox1 <- b'lora test message 3'" in out_c
+          and "ChatImpl <- b'lora test message 3'" in out_c, f"phase 16: {out_c}")
+    torch.cuda.synchronize()
+    print(f"phase 16: {card}: topology_runner --ticks=4 on a written .pth (breaker net, disabled "
+          f"block, signal wires, implicit decoder with dataLength): {lc[0]}; its lines equal "
+          f"--device=cpu's; {t_c:.2f} s on the card; fused_demod launches {fused.LAUNCHES}",
+          flush=True)
+    return {"flowgraph": fused.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the time-sharded mesh receivers, shards sharing the card
+# ---------------------------------------------------------------------------
+
+def mesh_of(dev, n_c, n_t):
+    from lora_phy_tpu_torch.parallel import mesh as meshlib
+
+    return meshlib.make_mesh(n_c, n_t, devices=[dev] * (n_c * n_t))
+
+
+def same_mesh_frames(blk, ref, label):
+    """The mesh's found frames equal the single-device receiver's: the same
+    (channel, start) set, symbols and sync exact, cfo within 1e-5 bins,
+    snr_db 1e-2 dB, sro_ppm 0.05 ppm. Returns the count."""
+    def rows(b):
+        f = b.found.cpu()
+        ch, k = torch.nonzero(f, as_tuple=True)
+        key = torch.stack([ch.to(torch.int64), b.start.cpu()[ch, k].to(torch.int64)], 1)
+        vals = {n: getattr(b, n).cpu()[ch, k] for n in ("symbols", "sync", "cfo_bins", "cfo",
+                                                        "snr_db", "sro_ppm")}
+        order = torch.argsort(key[:, 0] * (1 << 40) + key[:, 1])
+        return key[order], {n: v[order] for n, v in vals.items()}
+
+    (ka, va), (kb, vb) = rows(blk), rows(ref)
+    check(torch.equal(ka, kb), f"{label}: {len(ka)} frames against {len(kb)}, or other starts")
+    for n in ("symbols", "sync", "cfo_bins"):
+        check(torch.equal(va[n].to(torch.int64), vb[n].to(torch.int64)), f"{label}: {n} differ")
+    for n, tol in (("cfo", 1e-5), ("snr_db", 1e-2), ("sro_ppm", 0.05)):
+        err = float((va[n] - vb[n]).abs().max()) if len(ka) else 0.0
+        check(err <= tol, f"{label}: {n} differs by {err}")
+    return len(ka)
+
+
+def phase17_mesh(dev, card, tmp, cli_truth, cli_out):
+    """The mesh receivers on meshes of shards sharing the card; returns the
+    kernel launch counts of each path."""
+    from lora_phy_tpu_torch.parallel import stream as pstream
+
+    launches = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        fused.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = launches.get(name, 0) + fused.LAUNCHES
+        return out
+
+    # (a) the streaming demod at the main path's width: each channel's
+    # 8192 frames end to end as one dechirped stream
+    p = LoraParams(sf=7)
+    pool = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    full = pool.repeat(CHANNELS * MESH_FRAMES // POOL, 1).reshape(CHANNELS, MESH_FRAMES,
+                                                                  PAYLOAD_LEN)
+    re, im = planar.modulate_planar(modem.encode(full), p)
+    xr, xi = planar.dechirp_planar(re, im, p)
+    del re, im
+    xr, xi = xr.reshape(CHANNELS, -1), xi.reshape(CHANNELS, -1)
+    total = xr.numel()
+    first = None
+    for layout in MESH_LAYOUTS:
+        m = mesh_of(dev, *layout)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        syms, sync_w, _, _ = counted("mesh_demod", lambda: pstream.demodulate_stream_planar(
+            xr, xi, p, m))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        frames = syms.reshape(CHANNELS, MESH_FRAMES, 2 * PAYLOAD_LEN + 2)
+        check(torch.equal(modem.decode(frames[..., 2:]), full),
+              f"phase 17 (a) {layout}: decoded payloads differ")
+        check(bool((sync_w == 0x12).all()), f"phase 17 (a) {layout}: sync {sync_w.tolist()}")
+        if first is None:
+            first = syms
+        check(torch.equal(syms, first), f"phase 17 (a) {layout}: symbols differ across meshes")
+        t_full = cuda_ms(lambda: pstream.demodulate_stream_planar(xr, xi, p, m))
+        t_stub = cuda_ms(lambda: pstream.demodulate_stream_planar(xr, xi, p, m, comm=False))
+        print(f"phase 17 (a): {card}: demodulate_stream_planar on mesh {layout[0]}x{layout[1]} "
+              f"(shards share cuda:0) over {CHANNELS} x {xr.shape[-1]} samples "
+              f"({total / 1e6:.1f} M): {CHANNELS * MESH_FRAMES} payloads bit-exact, symbols equal "
+              f"across meshes; comm=True {t_full:.3f} ms ({total / t_full / 1e6:.3f} "
+              f"Gsamples/s), comm=False {t_stub:.3f} ms; peak memory above its inputs "
+              f"{peak:.2f} GiB", flush=True)
+    del xr, xi, first, syms, frames, full
+    torch.cuda.empty_cache()
+
+    # (b) the sharded block receiver over phase 5's stream
+    xr, xi, pay, period = block_stream(dev, p, CHANNELS, BLOCK_FRAMES)
+    n_pay = 2 * BLOCK_PAYLOAD
+    ref = sync.receive_block_planar(xr, xi, p, n_pay, max_frames=BLOCK_FRAMES,
+                                    min_power_db=-30.0)
+    for layout in MESH_LAYOUTS:
+        m = mesh_of(dev, *layout)
+        k = BLOCK_FRAMES // layout[1] + 2
+
+        def run():
+            return pstream.receive_stream_block_planar(xr, xi, p, n_pay, m, max_frames=k,
+                                                       min_power_db=-30.0)
+
+        blk = counted("mesh_block", run)
+        n = same_mesh_frames(blk, ref, f"phase 17 (b) {layout}")
+        t = cuda_ms(run, iters=5)
+        print(f"phase 17 (b): {card}: receive_stream_block_planar on mesh "
+              f"{layout[0]}x{layout[1]}, {k} slots per shard, over phase 5's {CHANNELS} x "
+              f"{xr.shape[-1]} samples: {n} frames, the single-device receiver's (starts, "
+              f"symbols, sync exact; floats within tolerance); {t:.3f} ms "
+              f"({xr.numel() / t / 1e6:.3f} Gsamples/s)", flush=True)
+        profile_once(run, f"phase 17 (b): {card}: receive_stream_block_planar "
+                          f"{layout[0]}x{layout[1]}", calls=3)
+
+    # (d) the soft spectra on the mesh against the single device
+    m = mesh_of(dev, 2, 4)
+    blk, spec = counted("mesh_soft", lambda: pstream.receive_stream_block_planar(
+        xr, xi, p, n_pay, m, max_frames=BLOCK_FRAMES // 4 + 2, min_power_db=-30.0,
+        with_spectra=True))
+    rblk, rspec = sync.receive_block_planar(xr, xi, p, n_pay, max_frames=BLOCK_FRAMES,
+                                            min_power_db=-30.0, with_spectra=True)
+    same_mesh_frames(blk, rblk, "phase 17 (d) soft")
+    ms, rs = spec[blk.found], rspec[rblk.found]       # both in (channel, start) order
+    rel = float(((ms - rs).abs().amax(dim=-1) / rs.amax(dim=-1)).max())
+    check(rel <= 2e-5, f"phase 17 (d): mesh spectra differ by {rel} of the peak")
+    soft_bytes = soft.hamming84_ml_decode(ms, scale=1)
+    check(bool((soft_bytes == pay.repeat_interleave(rblk.found.sum(-1), 0)).all()),
+          "phase 17 (d): ML decode of the mesh spectra")
+    print(f"phase 17 (d): with_spectra on mesh 2x4: {ms.shape[0]} frames' spectra within "
+          f"{rel:.3g} of the peak of the single device's (bound 2e-5), Hamming84 ML bytes "
+          f"exact", flush=True)
+    del xr, xi, ref, blk, spec, rblk, rspec, ms, rs
+    torch.cuda.empty_cache()
+
+    # (c) rx_stream --mesh over phase 14's 4096-frame file
+    from lora_phy_tpu_torch.runners import rx_stream
+
+    path = tmp / "stream_cf32.iq"
+    args = [f"--in={path}", "--payload-len=16", f"--block={CLI_BLOCK}",
+            f"--max-frames={CLI_MAX_FRAMES}"]
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    rc, out, err, t_rx = run_main(rx_stream.main, args + ["--mesh=1", f"--device={dev}"])
+    torch.cuda.synchronize()
+    launches["mesh_cli"] = fused.LAUNCHES
+    check(rc == 0, f"phase 17 (c) --mesh=1: rc {rc}: {err}")
+    check_cli_frames(out, err, cli_truth, "phase 17 (c) --mesh=1")
+    same_lines(out, cli_out, "phase 17 (c) --mesh=1 against rx_stream")
+    n_blocks = -(-path.stat().st_size // 8 // CLI_BLOCK)
+    print(f"phase 17 (c): {card}: rx_stream --mesh=1 over the {len(cli_truth)}-frame file: "
+          f"every frame once at its true start with its bytes, the lines of plain rx_stream; "
+          f"{t_rx:.2f} s wall, {len(cli_truth) / t_rx:.0f} frames/s, "
+          f"{t_rx / n_blocks * 1e3:.2f} ms host per block", flush=True)
+    n_cards = torch.cuda.device_count()
+    rc, out, err, _ = run_main(rx_stream.main, args + [f"--mesh={n_cards + 1}",
+                                                       f"--device={dev}"])
+    check(rc == 1 and out == "" and f"--mesh={n_cards + 1} exceeds {n_cards} devices" in err,
+          f"phase 17 (c): --mesh={n_cards + 1}: rc {rc}, {err!r}")
+    raw = path.read_bytes()[: (cli_truth[CLI_SMALL_FRAMES][0]) * 8]
+    cut = (cli_truth[CLI_SMALL_FRAMES // 2][0] + 400) * 8          # inside a frame
+    (tmp / "ma.iq").write_bytes(raw[:cut])
+    (tmp / "mb.iq").write_bytes(raw[cut:])
+    margs = ["--payload-len=16", "--mesh=1"]
+    ck_card, ck_cpu = tmp / "mesh_card.ck", tmp / "mesh_cpu.ck"
+    rc_a, _, _, _ = run_main(rx_stream.main, [f"--in={tmp / 'ma.iq'}", f"--checkpoint={ck_card}"]
+                             + margs + [f"--device={dev}"])
+    ck_cpu.write_bytes(ck_card.read_bytes())
+    rc_b, out_b, _, _ = run_main(rx_stream.main, [f"--in={tmp / 'mb.iq'}",
+                                                  f"--checkpoint={ck_card}"] + margs
+                                 + [f"--device={dev}"])
+    rc_c, out_c, _, _ = run_main(rx_stream.main, [f"--in={tmp / 'mb.iq'}",
+                                                  f"--checkpoint={ck_cpu}"] + margs
+                                 + ["--device=cpu"])
+    check(rc_a == rc_b == rc_c == 0 and out_b.strip(), "phase 17 (c) checkpoint: a run failed")
+    same_lines(out_c, out_b, "phase 17 (c) mesh checkpoint card -> CPU")
+    print(f"phase 17 (c): rx_stream --mesh=2 on {n_cards} card(s) exits 1 with the 'exceeds' "
+          f"line; a mesh checkpoint written mid-frame on the card resumes on --device=cpu with "
+          f"the card's own {len(out_b.splitlines())} remaining lines", flush=True)
+
+    # (d) the blind and adaptive mesh receivers
+    br, bi, truth = blind_stream(dev, BLOCK_PAYLOAD, seed=12)
+    pad = (-br.numel()) % (2 * LoraParams(sf=12).step)
+    br = torch.cat([br, br.new_zeros(pad)])[None]
+    bi = torch.cat([bi, bi.new_zeros(pad)])[None]
+    res = counted("mesh_blind", lambda: pstream.receive_blind_stream_planar(
+        br, bi, p, n_pay, mesh_of(dev, 1, 2)))
+    rows = sync.blind_frames(res)
+    ref_rows = sync.blind_frames(sync.receive_blind_planar(br, bi, p, n_pay))
+
+    def key(rs):
+        return [(r["sf"], r["start"], r["sync"], tuple(r["symbols"].tolist())) for r in rs]
+
+    check(key(rows) == key(ref_rows) and sorted((r["sf"], r["start"]) for r in rows)
+          == sorted((sf, st) for sf, st, _ in truth), f"phase 17 (d) blind: {key(rows)[:6]}")
+    print(f"phase 17 (d): receive_blind_stream_planar on mesh 1x2 over {br.numel()} samples: "
+          f"the six frames (SF7-12) at their SF and start, rows equal to receive_blind_planar's",
+          flush=True)
+    sig, gtruth = gateway_stream(dev, p, GATEWAY_FRAMES, 255, seed=9)
+    # pass 2 runs at the longest decoded length and defers a frame whose
+    # extent at that length overruns the buffer to the next block (the
+    # JAX twin's contract): the last call of a stream ends in one longest
+    # frame of silence
+    longest = stream.frame_overhead_samples(p) + (8 + coded.payload_symbol_count(
+        255, coded.CodedConfig(sf=7, cr=4))) * p.step
+    pad = longest + (-(sig.numel() + longest)) % (2 * p.step)
+    sig = torch.cat([sig, sig.new_zeros(pad)])[None]
+    t0 = time.perf_counter()
+    res = counted("mesh_adaptive", lambda: pstream.receive_adaptive_stream_planar(
+        sig.real.contiguous(), sig.imag.contiguous(), p, mesh_of(dev, 1, 2),
+        max_frames=GATEWAY_FRAMES))
+    dt = time.perf_counter() - t0
+    got = [(r["start"], r["payload"]) for r in res]
+    check(got == [(st, b) for st, b, _, _ in gtruth] and all(r["info"]["crc_ok"] for r in res),
+          f"phase 17 (d) adaptive: {len(got)} frames of {len(gtruth)}")
+    print(f"phase 17 (d): {card}: receive_adaptive_stream_planar on mesh 1x2 over phase 9's "
+          f"{sig.shape[-1]}-sample gateway stream: all {len(res)} frames crc_ok with their "
+          f"bytes at their starts; {dt:.2f} s host clock", flush=True)
+    del sig, br, bi
+    torch.cuda.empty_cache()
+
+    # (e) across processes: two gloo ranks x two time shards on the card,
+    # and one NCCL rank at world size 1
+    import socket
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    gloo_addr, nccl_addr = f"localhost:{free_port()}", f"localhost:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-worker",
+                               str(r), str(n), addr, backend],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r, n, addr, backend in ((0, 2, gloo_addr, "gloo"), (1, 2, gloo_addr, "gloo"),
+                                         (0, 1, nccl_addr, "nccl"))]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for proc, (out, err) in zip(procs, outs):
+        check(proc.returncode == 0 and "MESH WORKER OK" in out,
+              f"phase 17 (e): worker rc {proc.returncode}: {err[-2000:]}")
+        for line in out.splitlines():
+            print(f"phase 17 (e): {card}: {line}", flush=True)
+    launches["mesh_multiprocess"] = sum(
+        int(line.split("launches=")[1].split()[0]) for out, _ in outs
+        for line in out.splitlines() if "launches=" in line)
+
+    # (f) bench_scaling on the visible cards
+    from lora_phy_tpu_torch.runners import bench_scaling
+
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    rc, out, err, t_b = run_main(bench_scaling.main, ["--devices=1", f"--frames={SCALING_FRAMES}",
+                                                      f"--device={dev}"])
+    torch.cuda.synchronize()
+    launches["bench_scaling"] = fused.LAUNCHES
+    check(rc == 0, f"phase 17 (f) bench_scaling: rc {rc}: {err}")
+    doc = json.loads(out)
+    row = doc["rows"][0]
+    check(row["devices"] == 1 and "below_noise" in row and doc["platform"] == "gpu",
+          f"phase 17 (f): {doc}")
+    print(f"phase 17 (f): {card}: bench_scaling --devices=1 --frames={SCALING_FRAMES}: "
+          f"{json.dumps(row)} ({t_b:.1f} s)", flush=True)
+    return launches
+
+
+def mesh_worker(rank, nproc, addr, backend):
+    """One process of phase 17 (e): joins the group, holds two time shards
+    on cuda:0, and checks the streaming demod and the seam scan against the
+    single-device functions on the full stream."""
+    from lora_phy_tpu_torch.parallel import mesh as meshlib, multihost
+    from lora_phy_tpu_torch.parallel import stream as pstream
+
+    rank, nproc = int(rank), int(nproc)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if nproc > 1:
+        multihost.initialize(addr, nproc, rank, backend=backend)
+    else:
+        torch.distributed.init_process_group(backend, init_method=f"tcp://{addr}",
+                                             world_size=1, rank=0)
+    m = meshlib.make_mesh(1, 2 * nproc, devices=[dev] * 2)
+    p = LoraParams(sf=7)
+    fused.LAUNCHES = 0
+    pool = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    full = pool.repeat(CHANNELS * WORKER_FRAMES // POOL, 1).reshape(
+        CHANNELS, WORKER_FRAMES, PAYLOAD_LEN)
+    xr, xi = planar.dechirp_planar(*planar.modulate_planar(modem.encode(full), p), p)
+    xr, xi = xr.reshape(CHANNELS, -1), xi.reshape(CHANNELS, -1)
+    t_loc = xr.shape[-1] // nproc
+    lr = multihost.global_stream_array(m, xr[:, rank * t_loc:(rank + 1) * t_loc])
+    li = multihost.global_stream_array(m, xi[:, rank * t_loc:(rank + 1) * t_loc])
+    syms, sync_w, _, _ = pstream.demodulate_stream_planar(lr, li, p, m)
+    all_syms = multihost.process_allgather(syms, m)
+    ref = planar.demodulate_planar(xr, xi, p)
+    check(torch.equal(all_syms[:, 2:], ref.symbols) and torch.equal(sync_w, ref.sync_word),
+          "worker: symbols differ from the single device")
+    frames = all_syms.reshape(CHANNELS, WORKER_FRAMES, -1)[..., 2:]
+    check(torch.equal(modem.decode(frames), full), "worker: payloads differ")
+    t_ms = cuda_ms(lambda: pstream.demodulate_stream_planar(lr, li, p, m), iters=3)
+    # the seam scan: a frame straddling the process seam
+    n_pay = 8
+    frame_len = stream.frame_overhead_samples(p) + n_pay * p.step
+    total = 8192 * m.n_time
+    sr, si = torch.zeros(2, 1, total, device=dev)
+    pl = torch.arange(n_pay // 2, dtype=torch.uint8, device=dev)
+    fr, fi = stream.frame_modulate_planar(modem.encode(pl), p)
+    offs = (500, total // 2 - frame_len // 2)
+    for off in offs:
+        sr[0, off:off + frame_len], si[0, off:off + frame_len] = fr, fi
+    t_loc = total // nproc
+    blk = pstream.receive_stream_block_planar(
+        multihost.global_stream_array(m, sr[:, rank * t_loc:(rank + 1) * t_loc]),
+        multihost.global_stream_array(m, si[:, rank * t_loc:(rank + 1) * t_loc]),
+        p, n_pay, m, max_frames=2)
+    gf = multihost.process_allgather(blk.found, m)
+    gs = multihost.process_allgather(blk.start, m)
+    check(sorted(gs[gf].tolist()) == list(offs), f"worker: scan found {gs[gf].tolist()}")
+    torch.cuda.synchronize()
+    print(f"MESH WORKER OK rank {rank}/{nproc} {backend}: {CHANNELS} x {xr.shape[-1]} samples "
+          f"over a 1x{m.n_time} mesh (2 shards here), symbols and payloads equal to the single "
+          f"device; {t_ms:.3f} ms per call; the seam frame found once; launches="
+          f"{fused.LAUNCHES}", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--mesh-worker":
+        sys.exit(mesh_worker(*sys.argv[2:]))
     main()

@@ -34,12 +34,16 @@ mirrors its JAX twin file for file:
                       cancellation)
   models/awgn.py      the AWGN Monte Carlo (BER/PER sweeps)
   models/gr_interop.py  gr-lora_sdr frames: decode and encode
+  models/flowgraph.py the block-graph runtime for Pothos .pth topologies
+  parallel/           device meshes and the per-shard runner, the
+                      time-sharded streaming receivers, the
+                      multi-process layer (torch.distributed)
   runtime.py          ctypes binding to the native ingest runtime
                       (runtime/lora_runtime.cpp, built with g++)
   runners/            the command line (python -m
                       lora_phy_tpu_torch.runners.<name>): tx_runner,
                       rx_runner, tx_stream, rx_stream, awgn_sweep,
-                      gr_decode
+                      gr_decode, topology_runner, bench_scaling
   utils/params.py     LoraParams, Window, Bandwidth (the port's own copy)
   utils/iqio.py, utils/profiles.py, utils/stats.py
                       IQ file IO, the profile matrix, Wilson intervals

@@ -31,8 +31,15 @@ correction), ``--invert-iq``, ``--soft`` (Hamming84 ML detection from the
 receiver's spectra on the block paths), ``--adaptive [--soft] [--ldro]``
 (gateway mode: self-describing coded frames, pairs with ``tx_stream
 --coded``), ``--json`` (one JSON object per frame), ``--any-sync``.
-``--mesh=T`` (the time-sharded receiver) is not ported yet: it prints
-one line and exits 1.
+``--mesh=T`` time-shards the plain block receiver over T devices (the
+CUDA cards from ``--device`` on, or T shards sharing the CPU with
+``--device=cpu``): every fed block runs ONE
+:func:`..parallel.stream.receive_stream_block_planar` through
+:class:`..parallel.stream.MeshStreamDemodulator`, and ``--checkpoint``
+writes the mesh carry (the JAX twin's keys, plus ``reported``, which the
+JAX twin's loader ignores). Unlike the JAX twin's mesh loop, the
+near-start dedupe set is pruned behind the carry and seeded on resume,
+as on the single-device path of both packages.
 
 Host reads: per block one copy of the found frames' fields and decoded
 bytes for each SF (and the CAD flags under ``--cad``); the adaptive and
@@ -116,7 +123,7 @@ def main(argv=None) -> int:
         "robust": (None, False),      # multipath-robust receive (pre_acc=3)
         "frontend-correct": (None, False),
         "ldro": (None, False),        # adaptive mode: low-data-rate payload
-        "mesh": (int, 0),             # time-sharded receive: not ported yet
+        "mesh": (int, 0),             # time-shard the receive over N devices
         "device": DEVICE_FLAG,
     })
     if flags["format"] not in _FORMATS:
@@ -148,10 +155,6 @@ def main(argv=None) -> int:
                           or flags["channels"] or flags["sf"] == "auto"):
         print("--mesh time-shards the plain block receiver: fixed --sf, "
               "single channel, no --sic/--adaptive/--cad", file=sys.stderr)
-        return 1
-    if flags["mesh"]:
-        print("--mesh is not ported yet (the time-sharded receiver needs the "
-              "port's parallel/); run without --mesh", file=sys.stderr)
         return 1
     dev = device_from(flags)
     if dev is None:
@@ -193,7 +196,8 @@ def main(argv=None) -> int:
     n_skipped = 0                                      # CAD-gated buffers
 
     ckpt = pathlib.Path(flags["checkpoint"]) if flags["checkpoint"] else None
-    if ckpt and ckpt.exists() and not flags["adaptive"]:
+    if (ckpt and ckpt.exists() and not flags["adaptive"]
+            and not flags["mesh"]):
         with np.load(ckpt) as z:
             carry_re = torch.from_numpy(np.asarray(z["re"], np.float32)).to(dev)
             carry_im = torch.from_numpy(np.asarray(z["im"], np.float32)).to(dev)
@@ -338,6 +342,104 @@ def main(argv=None) -> int:
               f"snr={row['snr_db']:.1f}dB "
               f"sro={row['sro_ppm']:+.1f}ppm "
               f"{sic_tag}payload={payload.hex()}", flush=True)
+
+    if flags["mesh"]:
+        # time-sharded streaming: every fed block rides ONE sharded
+        # receive over a (1 x T) mesh (seam halos, global starts), with the
+        # fixed-length tail carry + exact-start dedupe of
+        # MeshStreamDemodulator; the near-start dedupe above still guards
+        # bin-jitter re-finds
+        from ..parallel import mesh as meshlib
+        from ..parallel.stream import (MeshStreamDemodulator,
+                                       load_mesh_state, save_mesh_state)
+
+        t_shards = flags["mesh"]
+        if dev.type == "cuda":
+            count = torch.cuda.device_count()
+            devs = [torch.device("cuda", ((dev.index or 0) + i) % count)
+                    for i in range(count)]
+        else:
+            devs = [dev] * t_shards                # shards share the CPU
+        if t_shards > len(devs):
+            print(f"--mesh={t_shards} exceeds {len(devs)} devices",
+                  file=sys.stderr)
+            return 1
+        m = meshlib.make_mesh(n_channel=1, n_time=t_shards,
+                              devices=devs[:t_shards])
+        rx = MeshStreamDemodulator(
+            params, n_payload_symbols, m, max_frames=flags["max-frames"],
+            preamble_len=npre, min_power_db=flags["thresh"],
+            pre_acc=3 if flags["robust"] else 1,
+            with_spectra=flags["soft"])
+        # minimum fed block: per-shard (keep+B)/T must hold frame+margin
+        min_b = max(rx.unit, rx.halo * t_shards - rx.keep)
+        min_b = -(-min_b // rx.unit) * rx.unit
+        mb = -(-max(block, min_b) // rx.unit) * rx.unit
+        state = rx.init_state(1)
+        if ckpt and ckpt.exists():
+            state = load_mesh_state(ckpt, device=m.home)
+            n_frames = int(state.n_frames)
+            with np.load(ckpt) as z:
+                if "reported" in z:
+                    reported = set((int(f), int(c), int(s))
+                                   for f, c, s in z["reported"].reshape(-1, 3))
+
+        def mesh_rows(frames):
+            """The block's frames with their bytes, decoded in one batch."""
+            if not frames:
+                return frames
+            if flags["soft"]:
+                from ..models import soft as softmod
+
+                pay = softmod.hamming84_ml_decode(
+                    torch.stack([r["spectra"] for r in frames]),
+                    scale=int(round(params.scale)))
+            else:
+                pay = modem.decode(torch.stack([r["symbols"] for r in frames]))
+            for row, b in zip(frames, pay.cpu().numpy()):
+                row["payload"] = b.tobytes()
+            return frames
+
+        pend_re = pend_im = torch.zeros(0, device=m.home)
+        try:
+            eof = False
+            while not eof:
+                planes = read_block(mb)
+                if planes is not None:
+                    pend_re = torch.cat([pend_re, planes[0].to(m.home)])
+                    pend_im = torch.cat([pend_im, planes[1].to(m.home)])
+                else:
+                    eof = True
+                    if pend_re.numel() == 0:
+                        break
+                    # zero-pad the final chunk up to a VALID fed block
+                    # (>= min_b so the per-shard halo check holds; the pad
+                    # region is silence and yields no frames)
+                    tgt = max(min_b, -(-pend_re.numel() // rx.unit) * rx.unit)
+                    z = torch.zeros(tgt - pend_re.numel(), device=m.home)
+                    pend_re = torch.cat([pend_re, z])
+                    pend_im = torch.cat([pend_im, z])
+                while pend_re.numel() >= mb or (eof and pend_re.numel()):
+                    cut = min(mb, pend_re.numel())
+                    state, frames = rx.process(
+                        state, pend_re[None, :cut], pend_im[None, :cut])
+                    pend_re, pend_im = pend_re[cut:], pend_im[cut:]
+                    for row in mesh_rows(frames):
+                        report(row, params, 0, 0)
+                    # starts behind the carry can never be reported again
+                    reported = {t for t in reported
+                                if t[2] >= state.consumed - frame_len}
+        finally:
+            if src is not sys.stdin.buffer:
+                src.close()
+        if ckpt:
+            save_mesh_state(state._replace(n_frames=n_frames), ckpt,
+                            reported=np.asarray(sorted(reported),
+                                                np.int64).reshape(-1, 3))
+        if not flags["quiet"]:
+            print(f"{n_frames} frames ({t_shards} time shards)",
+                  file=sys.stderr)
+        return 0
 
     def sic_rows(xr, xi, p):
         """The collision receiver's frames with their bytes (one copy)."""

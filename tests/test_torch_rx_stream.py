@@ -8,8 +8,8 @@ Compared exactly: the exit code, every decision field of every line
 ``payload``, ``len``, ``cr``, ``crc``) and the ``N frames`` summary on
 stderr. Within stated tolerances: the printed ``snr``/``sro`` (one
 printed digit), the JSON ``snr_db``/``sro_ppm`` and ``margin=``
-(``_torch_util``). TX files are byte-equal. ``--mesh`` is not ported: the
-port exits 1."""
+(``_torch_util``). TX files are byte-equal. ``--mesh=T`` runs T CPU shards
+(``--device=cpu``) against JAX's T virtual CPU devices."""
 
 import io
 import json
@@ -346,18 +346,108 @@ def test_rx_stream_frontend_correct(tmp_path, capfd):
     assert f"payload={pay_b.tobytes().hex()}" in out
 
 
-def test_rx_stream_mesh_mode_not_ported(capfd, frames_fixture):
-    """--mesh=T (time-sharded receive) is not ported yet: one line on
-    stderr and exit 1, for any --mesh > 0; its flag conflicts stay the
-    JAX runner's."""
+def test_rx_stream_mesh_mode(capfd, frames_fixture):
+    """test_rx_stream.py:613: --mesh=4 --block=16384 (fed blocks of 18,432
+    samples: 4 shards of 6,272 = the frame + margin halo) finds every frame
+    once at its true start with its bytes; the lines equal JAX's."""
+    p, payloads, sig, starts, path = frames_fixture
+    rc, out, err = both_rx([f"--in={path}", "--sf=7", "--payload-len=16", "--mesh=4",
+                            "--block=16384"], capfd)
+    lines = out.strip().splitlines()
+    assert rc == 0 and len(lines) == len(payloads) and "(4 time shards)" in err
+    for line, pay, s0 in zip(lines, payloads, starts):
+        assert f"@{s0} " in line and line.endswith(pay.tobytes().hex())
+    for extra in (["--mesh=1"], ["--mesh=2", "--robust", "--json"],
+                  ["--mesh=8", "--invert-iq"]):
+        both_rx([f"--in={path}", "--sf=7", "--payload-len=16", *extra], capfd)
+
+
+def test_rx_stream_mesh_checkpoint_resume(tmp_path, capfd, frames_fixture):
+    """test_rx_stream.py:613's resume: the stream split at an arbitrary
+    byte, each half through --mesh=4 --checkpoint, gives every frame once;
+    each package's halves give JAX's lines, and a checkpoint written by one
+    package resumes in the other.
+
+    The dedupe divergence: JAX's mesh loop never prunes its near-start
+    ``reported`` set and does not seed it on resume; the port prunes it
+    behind the carry and stores it in the checkpoint (key ``reported``,
+    which JAX's loader ignores). The lines differ only if a frame is
+    re-found at another start within half a frame of one reported before
+    the checkpoint; on this stream they are equal.
+
+    A mirrored JAX fault (ROADMAP Queue 3): the first run zero-pads its
+    last chunk to a fed block of 18,432 samples and those zeros enter the
+    checkpointed carry, so the resumed run reports its frames ``pad``
+    samples late (the payloads are right; a frame cut by the split would
+    decode wrong)."""
+    p, payloads, sig, starts, path = frames_fixture
+    cut = (len(sig) // 3) * 8
+    raw = _interleave(sig)
+    a, b = tmp_path / "a.iq", tmp_path / "b.iq"
+    a.write_bytes(raw[:cut])
+    b.write_bytes(raw[cut:])
+    args = ["--sf=7", "--payload-len=16", "--mesh=4"]
+    outs = {}
+    for name, (first, second) in {"jax": (jrx.main, jrx.main), "port": (trx.main, trx.main),
+                                  "jax->port": (jrx.main, trx.main),
+                                  "port->jax": (trx.main, jrx.main)}.items():
+        ck = tmp_path / f"{name}.ckpt"
+        lines = []
+        for main, part in ((first, a), (second, b)):
+            extra = CPU if main is trx.main else []
+            rc, out, _ = run_cli(main, [f"--in={part}", f"--checkpoint={ck}", *args] + extra,
+                                 capfd)
+            assert rc == 0
+            lines += out.strip().splitlines()
+        outs[name] = "\n".join(lines)
+        if name == "port":
+            with np.load(ck) as z:
+                assert {"tail_re", "tail_im", "consumed", "emitted_start", "n_frames",
+                        "reported"} <= set(z.files)
+    for name in ("port", "jax->port", "port->jax"):
+        assert_same_lines(outs[name], outs["jax"])
+    lines = outs["port"].splitlines()
+    assert len(lines) == len(payloads)
+    pad = 18432 - cut // 8                # the mirrored resume offset
+    for line, pay, s0 in zip(lines, payloads, starts):
+        at = s0 if s0 < cut // 8 else s0 + pad
+        assert f"@{at} " in line and line.endswith(pay.tobytes().hex())
+
+
+def test_rx_stream_mesh_soft(capfd, frames_fixture):
+    """test_rx_stream.py:657's --soft --mesh=2: Hamming84 ML detection from
+    the mesh's spectra, JAX's lines."""
+    p, payloads, sig, starts, path = frames_fixture
+    rc, out, _ = both_rx([f"--in={path}", "--sf=7", "--payload-len=16", "--soft",
+                          "--mesh=2", "--block=16384", "--quiet"], capfd)
+    lines = out.strip().splitlines()
+    assert rc == 0 and len(lines) == len(payloads)
+    for line, pay in zip(lines, payloads):
+        assert line.endswith(pay.tobytes().hex())
+
+
+def test_rx_stream_mesh_flag_conflicts(capfd, frames_fixture):
+    """--mesh takes the plain block receiver only: --sf=auto, --sic,
+    --adaptive, --cad and --channels exit 1 with JAX's line."""
     *_, path = frames_fixture
-    for extra in (["--mesh=4"], ["--mesh=2", "--soft"], ["--mesh=1"]):
-        rc, out, err = run_cli(trx.main, [f"--in={path}", "--sf=7", "--payload-len=16",
-                                          "--block=16384", *extra] + CPU, capfd)
-        assert rc == 1 and out == ""
-        assert len(err.strip().splitlines()) == 1 and "not ported" in err
-    rc, _, err = run_cli(trx.main, [f"--in={path}", "--sf=auto", "--mesh=2"] + CPU, capfd)
-    assert rc == 1 and "--mesh time-shards" in err
+    for extra in (["--sf=auto"], ["--sic"], ["--adaptive"], ["--cad"], ["--channels=4"]):
+        rc, out, err = both_rx([f"--in={path}", "--mesh=2", *extra], capfd)
+        assert rc == 1 and out == "" and "--mesh time-shards" in err
+
+
+@pytest.mark.gpu
+def test_rx_stream_mesh_exceeds_cards(capfd, frames_fixture):
+    """On CUDA, --mesh beyond the visible cards exits 1 with JAX's line."""
+    import torch
+
+    from _torch_util import cuda_device
+
+    dev = cuda_device()
+    n = torch.cuda.device_count()
+    *_, path = frames_fixture
+    rc, out, err = run_cli(trx.main, [f"--in={path}", f"--mesh={n + 1}",
+                                      f"--device={dev}"], capfd)
+    assert rc == 1 and out == "" and f"--mesh={n + 1} exceeds {n} devices" in err
 
 
 def test_rx_stream_soft_block_mode(capfd, frames_fixture):
