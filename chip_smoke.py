@@ -124,12 +124,29 @@ Imports no JAX. Phases, one line each (or a few):
    receiver over phase 12's stream, the adaptive one over phase 9's; (e)
    two gloo processes of two shards each and one NCCL process at world
    size 1 (this script with --mesh-worker), symbols equal to the single
-   device; (f) bench_scaling --devices=1.
+   device; (f) bench_scaling --devices=1;
+18. the last slice of runners: (a) vector_generate on the card against
+   the CPU (both the port) over VECTOR_CELLS at 255-byte payloads (SF7-12,
+   and the tests' oversampled, windowed and impaired cells): the decision
+   files hash-equal, each IQ CSV by hash or within the TX / injector
+   tolerance plus one printed digit; comprehensive_vector_generate's two
+   corpus files equal; vector_dump and compare_vectors as CLIs; (b)
+   perf_test --packets=1000 over its default profiles and over
+   profiles/perf_matrix.yaml, compare_perf of each CSV against itself (exit
+   0) and against a copy with one pps halved (exit 1); (c) roofline at its
+   defaults (8 x 8192 SF7 frames, 1 x 1024 SF12): dispatch overhead,
+   bandwidth, each SF's time against its floors; (d) sic_sweep over its
+   default gaps with 16 trials per gap (a cut from its 40, for time): the
+   weak frame recovered by SIC at least as often as by the plain pass, the
+   strong one every time; (e) scope's panels and rows on the card against
+   the CPU over phase 14's cf32 file, and its PNG where matplotlib is
+   installed (else the CLI's exit 1); (f) utils.profiling.trace around one
+   demodulate_planar call: a Chrome trace naming CUDA kernels.
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
-SIC loop and the blind receiver's six SFs (phases 12-13) and the flowgraph.
-Phases 14-17 write their streams to a temporary directory. Then a JSON
+SIC loop and the blind receiver's six SFs (phases 12-13), the flowgraph and
+phase 18's sweep. Phases 14-18 write their files to a temporary directory. Then a JSON
 line of the kernels (with the launches counted on each path) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
@@ -153,6 +170,10 @@ from lora_phy_tpu_torch import Bandwidth, LoraParams, Window, _build
 from lora_phy_tpu_torch.models import coded, modem, sic, soft, stream, sync
 from lora_phy_tpu_torch.ops import channelizer, impair, planar
 from lora_phy_tpu_torch.ops import fused_demod as fused
+# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
+# HBM bandwidth; one definition, in the port's profiling module
+from lora_phy_tpu_torch.utils.profiling import H100_F32_FLOPS as PEAK_F32_FLOPS
+from lora_phy_tpu_torch.utils.profiling import H100_HBM_BPS as PEAK_HBM_BYTES
 
 CHANNELS, FRAMES, PAYLOAD_LEN, POOL = 8, 8192, 32, 64
 NEAR_TIE_REL = 1e-5
@@ -196,9 +217,15 @@ FLOW_CASES, FLOW_TICKS = ((7, 3.0), (12, 4.0)), 16
 # cross-process workers, frames of bench_scaling's one-card row
 MESH_FRAMES, MESH_LAYOUTS = FRAMES, ((1, 1), (1, 4), (2, 4))
 WORKER_FRAMES, SCALING_FRAMES = 1024, 8192
-# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor
-# cores, HBM bandwidth
-PEAK_F32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+# the last slice (phase 18): vector_generate's payload bytes and cells
+# (sf, osr, window, cfo_bins, time_offset): SF7-12 plain, then the tests'
+# grid cells with osr 2, Hann and the injectors; perf_test's packets (its
+# default); sic_sweep's trials per gap (its default 40, cut for time)
+VECTOR_BYTES = 255
+VECTOR_CELLS = tuple((sf, 1, Window.NONE, 0.0, 0.0) for sf in range(7, 13)) + (
+    (7, 2, Window.HANN, 0.25, 2.0), (9, 2, Window.NONE, 0.25, -3.0),
+    (12, 1, Window.NONE, 0.5, 0.0), (12, 2, Window.HANN, 0.0, 2.0))
+PERF_PACKETS, SWEEP_TRIALS = 1000, 16
 
 
 def check(ok, msg):
@@ -384,6 +411,8 @@ def main():
         other.update(phase16_flowgraph(dev, card, tmp))
         torch.cuda.empty_cache()
         other.update(phase17_mesh(dev, card, tmp, cli_truth, cli_out))
+        torch.cuda.empty_cache()
+        other.update(phase18_last_slice(dev, card, tmp))
 
     check("jax" not in sys.modules, "the port imported JAX")
     # the new paths reach no kernel of the port (none is a Pallas kernel in
@@ -2101,6 +2130,262 @@ def phase17_mesh(dev, card, tmp, cli_truth, cli_out):
           f"phase 17 (f): {doc}")
     print(f"phase 17 (f): {card}: bench_scaling --devices=1 --frames={SCALING_FRAMES}: "
           f"{json.dumps(row)} ({t_b:.1f} s)", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the last slice of runners on the card
+# ---------------------------------------------------------------------------
+
+VECTOR_DECISION_FILES = ("payload.bin", "pre_interleave.csv", "post_interleave.csv",
+                         "demod_symbols.csv", "deinterleave.csv", "decoded.bin")
+# an IQ CSV that is not hash-equal is held by its values: the trig-path TX
+# tolerance 5e-7 (plus the injectors' 1e-6 for the impaired file) and one
+# printed digit at %g (1e-6 for a value below 1)
+IQ_CSV_TOL = 5e-7 + 1e-6
+OFFSET_CSV_TOL = 5e-7 + 1e-6 + 1e-6
+
+
+def counted(fn):
+    """``fn()`` with the kernel counter set to 0 just before it and read just
+    after: (its result, the launches, host seconds)."""
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused.LAUNCHES, time.perf_counter() - t0
+
+
+def same_iq_csv(a, b, tol, label):
+    """Two IQ CSVs: hash-equal, or equal in shape and within ``tol``;
+    returns a note for the output."""
+    from lora_phy_tpu_torch.utils.manifest import sha256_file
+
+    if sha256_file(a) == sha256_file(b):
+        return f"{a.name} hash-equal"
+    x, y = (np.loadtxt(f, delimiter=",", dtype=np.float64, ndmin=2) for f in (a, b))
+    check(x.shape == y.shape, f"{label}: {a.name} has {x.shape} against {y.shape}")
+    err = float(np.abs(x - y).max())
+    check(err <= tol, f"{label}: {a.name} differs by {err} > {tol}")
+    return (f"{a.name} {int((x != y).any(axis=1).sum())} of {len(x)} lines differ, "
+            f"max {err:.3g}")
+
+
+def phase18a_vectors(dev, card, tmp):
+    """vector_generate card vs CPU over VECTOR_CELLS, the comprehensive
+    corpus card vs CPU, vector_dump and compare_vectors as CLIs; returns the
+    kernel launch counts."""
+    import shutil
+
+    from lora_phy_tpu_torch.runners import (compare_vectors, comprehensive_vector_generate,
+                                            vector_dump, vector_generate)
+    from lora_phy_tpu_torch.utils.manifest import compare_dirs, sha256_file
+
+    launches = {"vector_generate": 0}
+    for k, (sf, osr, window, cfo, shift) in enumerate(VECTOR_CELLS):
+        p = LoraParams(sf=sf, osr=osr, window=window)
+        kw = dict(seed=k + 1, byte_count=VECTOR_BYTES, cfo_bins=cfo, time_offset=shift,
+                  b64=False)
+        label = f"phase 18 (a) SF{sf} osr {osr} {window.name} cfo {cfo:g} shift {shift:g}"
+        on_card, n, t_card = counted(
+            lambda: vector_generate.generate(tmp / "vg_card", p, device=dev, **kw))
+        launches["vector_generate"] += n
+        t0 = time.perf_counter()
+        on_cpu = vector_generate.generate(tmp / "vg_cpu", p, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        names = sorted(f.name for f in on_card.iterdir())
+        check(names == sorted(f.name for f in on_cpu.iterdir()), f"{label}: files {names}")
+        for name in VECTOR_DECISION_FILES:
+            check(sha256_file(on_card / name) == sha256_file(on_cpu / name),
+                  f"{label}: {name} differs between the card and the CPU")
+        notes = [same_iq_csv(on_card / name, on_cpu / name, tol, label)
+                 for name, tol in (("iq_samples.csv", IQ_CSV_TOL),
+                                   ("iq_samples_offset.csv", OFFSET_CSV_TOL))
+                 if name in names]
+        print(f"{label}: {card}: vector_generate, {VECTOR_BYTES}-byte payload, "
+              f"{t_card:.2f} s with the chain on the card, {t_cpu:.2f} s on the CPU (host "
+              f"clock, CSV writing included); decision files hash-equal; "
+              f"{'; '.join(notes)}", flush=True)
+        shutil.rmtree(on_card)
+        shutil.rmtree(on_cpu)
+
+    dev_flag = f"--device={dev}"
+    (rc, _, err, _), n, t_cv = counted(lambda: run_main(
+        comprehensive_vector_generate.main, [f"--out={tmp / 'cv_card'}", dev_flag]))
+    launches["comprehensive_vectors"] = n
+    rc_h, _, err_h, t_h = run_main(comprehensive_vector_generate.main,
+                                   [f"--out={tmp / 'cv_cpu'}", "--device=cpu"])
+    check(rc == rc_h == 0, f"phase 18 (a) comprehensive: rc {rc} / {rc_h}: {err}{err_h}")
+    diff = compare_dirs(tmp / "cv_card", tmp / "cv_cpu")
+    check(diff == [], f"phase 18 (a) comprehensive: {diff}")
+    print(f"phase 18 (a): {card}: comprehensive_vector_generate (144 Hamming records, 30 "
+          f"modulation records at SF7-12): {t_cv:.2f} s, the CPU {t_h:.2f} s; both files "
+          f"hash-equal", flush=True)
+
+    dump = ["--sf=9", f"--bytes={VECTOR_BYTES}"]
+    (rc, _, err, _), n, t_d = counted(lambda: run_main(
+        vector_dump.main, dump + [f"--out={tmp / 'dump_card'}", dev_flag]))
+    launches["vector_dump"] = n
+    rc_h = run_main(vector_dump.main, dump + [f"--out={tmp / 'dump_cpu'}", "--device=cpu"])[0]
+    rc_s = run_main(vector_dump.main, dump + ["--seed=2", f"--out={tmp / 'dump_seed2'}",
+                                              dev_flag])[0]
+    rc_eq, _, err_eq, _ = run_main(compare_vectors.main,
+                                   [str(tmp / "dump_card"), str(tmp / "dump_cpu")])
+    rc_ne, _, err_ne, _ = run_main(compare_vectors.main,
+                                   [str(tmp / "dump_card"), str(tmp / "dump_seed2")])
+    check(rc == rc_h == rc_s == 0, f"phase 18 (a) vector_dump: rc {rc} / {rc_h} / {rc_s}: {err}")
+    check(rc_eq == 0 and rc_ne == 1, f"phase 18 (a) compare_vectors: rc {rc_eq} "
+          f"({err_eq.strip()}) / {rc_ne} ({err_ne.strip()[-200:]})")
+    print(f"phase 18 (a): {card}: vector_dump --sf=9 --bytes={VECTOR_BYTES} (all stages) "
+          f"{t_d:.2f} s; compare_vectors: the card's dump against the CPU's exit 0, against "
+          f"another seed's exit 1", flush=True)
+    return launches
+
+
+def phase18b_perf(dev, card, tmp):
+    """perf_test over its default profiles and the perf matrix, compare_perf
+    on each CSV; returns the kernel launch count."""
+    from lora_phy_tpu_torch.runners import compare_perf, perf_test
+
+    launches = 0
+    out_dir = tmp / "perf"
+    saved = os.environ.get("RUN_ID")
+    for run_id, extra in (("chip_default", []),
+                          ("chip_matrix", [f"--profiles={REPO / 'profiles' / 'perf_matrix.yaml'}"])):
+        os.environ["RUN_ID"] = run_id
+        (rc, _, err, _), n, t = counted(lambda: run_main(perf_test.main, [
+            f"--packets={PERF_PACKETS}", f"--out-dir={out_dir}", f"--device={dev}"] + extra))
+        launches += n
+        path = out_dir / f"performance_{run_id}.csv"
+        check(rc == 0 and path.exists(), f"phase 18 (b) perf_test {run_id}: rc {rc}: {err}")
+        lines = path.read_text().splitlines()
+        check(lines[0] == "run_id,profile,sf,N,pps,us_per_symbol" and len(lines) == 4,
+              f"phase 18 (b) perf_test {run_id}: {lines}")
+        print(f"phase 18 (b): {card}: perf_test --packets={PERF_PACKETS} "
+              f"{extra[0] if extra else '(default profiles)'}: {t:.1f} s host; rows:", flush=True)
+        for row in lines[1:]:
+            print(f"phase 18 (b): {card}:   {row}", flush=True)
+        rows = [line.split(",") for line in lines]
+        rows[1][4] = f"{float(rows[1][4]) / 2:.3f}"
+        halved = out_dir / f"halved_{run_id}.csv"
+        halved.write_text("\n".join(",".join(r) for r in rows) + "\n")
+        rc_same = run_main(compare_perf.main, [str(path), str(path)])[0]
+        rc_half, _, err_half, _ = run_main(compare_perf.main, [str(path), str(halved)])
+        check(rc_same == 0 and rc_half == 1,
+              f"phase 18 (b) compare_perf {run_id}: rc {rc_same} / {rc_half}: {err_half}")
+        print(f"phase 18 (b): compare_perf of {path.name} against itself exit 0, against a "
+              f"copy with {rows[1][1]}'s pps halved exit 1 ({err_half.splitlines()[0]})",
+              flush=True)
+    if saved is None:
+        del os.environ["RUN_ID"]
+    else:
+        os.environ["RUN_ID"] = saved
+    return launches
+
+
+def phase18_last_slice(dev, card, tmp):
+    """Phase 18 (a)-(f); returns the kernel launch count of each path."""
+    import importlib.util
+
+    from lora_phy_tpu_torch import runtime
+    from lora_phy_tpu_torch.runners import roofline, scope, sic_sweep
+    from lora_phy_tpu_torch.utils import profiling
+
+    dev_flag = f"--device={dev}"
+    launches = phase18a_vectors(dev, card, tmp)
+    launches["perf_test"] = phase18b_perf(dev, card, tmp)
+    torch.cuda.empty_cache()
+
+    # (c) roofline at its defaults
+    (rc, out, err, _), n, t = counted(lambda: run_main(roofline.main, [dev_flag]))
+    launches["roofline"] = n
+    lines = out.splitlines()
+    check(rc == 0 and len(lines) == 4 and lines[0].startswith("dispatch overhead: ")
+          and lines[1].startswith("effective bandwidth") and lines[2].startswith("SF7:")
+          and lines[3].startswith("SF12:"), f"phase 18 (c) roofline: rc {rc}: {out}{err}")
+    for line in err.strip().splitlines() + lines:
+        print(f"phase 18 (c): {card}: roofline: {line}", flush=True)
+    print(f"phase 18 (c): roofline at its defaults (8 x 8192 SF7 frames, 1 x 1024 SF12): "
+          f"{t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) sic_sweep over its default gaps, cut to SWEEP_TRIALS trials per gap
+    (rc, out, err, _), n, t = counted(lambda: run_main(
+        sic_sweep.main, [f"--trials={SWEEP_TRIALS}", dev_flag]))
+    launches["sic_sweep"] = n
+    lines = out.splitlines()
+    check(rc == 0 and lines[0] == sic_sweep.HEADER and len(lines) == 6,
+          f"phase 18 (d) sic_sweep: rc {rc}: {out}{err}")
+    for row in lines[1:]:
+        gap, trials, wp, ws, ss = row.split(",")[:5]
+        check(int(trials) == SWEEP_TRIALS and int(ws) >= int(wp) and int(ss) == SWEEP_TRIALS,
+              f"phase 18 (d) sic_sweep gap {gap}: {row}")
+    print(f"phase 18 (d): {card}: sic_sweep --trials={SWEEP_TRIALS} (a cut from its default "
+          f"40, for time) over gaps 3-15 dB at 20 dB SNR: {t:.1f} s host, "
+          f"{t / (5 * SWEEP_TRIALS) * 1e3:.0f} ms per trial (one plain pass and SIC); SIC "
+          f"recovers the weak frame at least as often as the plain pass at every gap, the "
+          f"strong frame every time:", flush=True)
+    for row in lines:
+        print(f"phase 18 (d):   {row}", flush=True)
+
+    # (e) scope over phase 14's cf32 file: the card's panels and rows against
+    # the CPU's, then the PNG
+    path = tmp / "stream_cf32.iq"
+    re, im = runtime.to_planar(np.fromfile(path, np.float32)[: 2 * (1 << 21)])
+    p = LoraParams(sf=7)
+    (st, up, rows), n, t = counted(lambda: scope.panels(
+        torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev), p, CLI_PAYLOAD))
+    launches["scope"] = n
+    hst, hup, hrows = scope.panels(torch.from_numpy(re), torch.from_numpy(im), p, CLI_PAYLOAD)
+    errs = [float((got.cpu() - ref).abs().max() / ref.max()) for got, ref in
+            ((st, hst), (up, hup))]
+    check(max(errs) <= 1e-5, f"phase 18 (e) scope: panels differ by {errs} of the peak")
+    check(len(rows) == len(hrows) == 16, f"phase 18 (e) scope: {len(rows)} / {len(hrows)} rows")
+    for r, h in zip(rows, hrows):
+        check((r["start"], r["cfo_bins"], r["sync"]) == (h["start"], h["cfo_bins"], h["sync"])
+              and torch.equal(r["symbols"].cpu(), h["symbols"])
+              and abs(r["cfo"] - h["cfo"]) <= 1e-6 and abs(r["snr_db"] - h["snr_db"]) <= 1e-2
+              and abs(r["sro_ppm"] - h["sro_ppm"]) <= 0.05,
+              f"phase 18 (e) scope: row {r['k']} at {r['start']} differs from the CPU's")
+    print(f"phase 18 (e): {card}: scope.panels over {re.size} samples of phase 14's file "
+          f"({re.size // p.step} windows): {t * 1e3:.1f} ms host; STFT and up-dechirped panels "
+          f"within {max(errs):.3g} of the CPU's peak, {len(rows)} rows equal to the CPU's",
+          flush=True)
+    png = tmp / "scope.png"
+    args = [f"--in={path}", f"--payload-len={CLI_PAYLOAD}", f"--out={png}", dev_flag]
+    rc, _, err, t = run_main(scope.main, args)
+    if importlib.util.find_spec("matplotlib") is not None:
+        check(rc == 0 and png.stat().st_size > 10000 and f"({len(rows)} frames annotated)" in err,
+              f"phase 18 (e) scope: rc {rc}: {err}")
+        print(f"phase 18 (e): {card}: scope wrote a {png.stat().st_size}-byte PNG in {t:.1f} s: "
+              f"{err.strip()}", flush=True)
+    else:
+        check(rc == 1 and not png.exists() and "matplotlib" in err,
+              f"phase 18 (e) scope without matplotlib: rc {rc}: {err}")
+        print("scope: PNG not rendered: no matplotlib on this machine", flush=True)
+        print(f"phase 18 (e): scope's CLI without matplotlib: exit 1, {err.strip()!r}", flush=True)
+
+    # (f) utils.profiling.trace around one demodulate_planar call
+    pay = torch.from_numpy(np.random.RandomState(18).randint(
+        0, 256, (CHANNELS, BLOCK_FRAMES, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    xr, xi = planar.dechirp_planar(*planar.modulate_planar(modem.encode(pay), p), p)
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    with profiling.trace(tmp / "trace") as log_dir:
+        res = planar.demodulate_planar(xr, xi, p)
+    launches["trace"] = fused.LAUNCHES
+    check(torch.equal(modem.decode(res.symbols), pay), "phase 18 (f): decoded payloads differ")
+    events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    check(kernels, "phase 18 (f): the trace names no CUDA kernel")
+    print(f"phase 18 (f): {card}: profiling.trace around demodulate_planar over "
+          f"{CHANNELS} x {BLOCK_FRAMES} frames: trace.json with {len(events)} events, "
+          f"{len(kernels)} CUDA kernels, e.g. {sorted(set(kernels))[:3]}", flush=True)
+
+    check(not any(launches.values()), f"phase 18: fused_demod launched on {launches}")
+    print(f"phase 18: fused_demod launches on each path: {launches} (none of these paths "
+          f"calls demodulate_planar(fused=True), as in JAX)", flush=True)
     return launches
 
 

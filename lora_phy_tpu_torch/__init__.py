@@ -9,8 +9,8 @@ mirrors its JAX twin file for file:
                       5/4 and 6/4, Gray, nibbles, bit pack, whiteners,
                       SX1272 CRC16, checksums, diagonal interleavers
   ops/chirp.py        integer-lattice chirp emitter (table gather / trig),
-                      the complex modulate_symbols / base_downchirp and
-                      the AWGN model chirps
+                      the complex modulate_symbols / base_downchirp,
+                      gen_chirp and the AWGN model chirps
   ops/fft.py          FFT backends (torch.fft, the four-step DFT matmul)
   ops/detect.py       the complex detector (argmax, powers, fractional bin)
   ops/planar.py       planar (re, im) TX, dechirp and demodulation, the
@@ -43,10 +43,19 @@ mirrors its JAX twin file for file:
   runners/            the command line (python -m
                       lora_phy_tpu_torch.runners.<name>): tx_runner,
                       rx_runner, tx_stream, rx_stream, awgn_sweep,
-                      gr_decode, topology_runner, bench_scaling
+                      gr_decode, topology_runner, bench_scaling; the
+                      golden-vector tools vector_generate, vector_dump,
+                      compare_vectors, comprehensive_vector_generate; the
+                      perf tools perf_test, compare_perf, roofline; the
+                      diagnostics sic_sweep and scope
   utils/params.py     LoraParams, Window, Bandwidth (the port's own copy)
   utils/iqio.py, utils/profiles.py, utils/stats.py
                       IQ file IO, the profile matrix, Wilson intervals
+  utils/manifest.py, utils/vectors.py
+                      vector-directory manifests (base64, SHA256) and the
+                      binary vector record format (own copies)
+  utils/profiling.py  torch.profiler traces and the demod roofline at the
+                      H100's published peaks
 
 Functions take tensors and compute on the device those tensors live on;
 functions that create a tensor from nothing take ``device=``, which

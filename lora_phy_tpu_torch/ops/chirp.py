@@ -60,6 +60,24 @@ def gen_chirp_np(
     return samples, end
 
 
+def gen_chirp(
+    n: int,
+    osr: int,
+    nn: int,
+    f0: float,
+    down: bool,
+    ampl: float = 1.0,
+    phase0: float = 0.0,
+    bw_scale: float = 1.0,
+    device=None,
+):
+    """:func:`gen_chirp_np` with its samples as a complex64 tensor on
+    ``device`` (default: the first CUDA card): ``(samples[nn],
+    phase_accum_out float)``, the phase carry of ChirpGenerator.hpp:48."""
+    samples, end = gen_chirp_np(n, osr, nn, f0, down, ampl, phase0, bw_scale)
+    return torch.from_numpy(samples).to(device_of(None, device)), end
+
+
 # int32 intermediates of the lattice reach ~M^2 and wrap for M >= 46341
 _INT32_LATTICE_MAX_M = 46341
 
