@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and the repository checkout (the kernel is built
+Needs one CUDA card, nvcc and the repository checkout (the kernels are built
 from ``lora_phy_tpu_torch/csrc`` into ``build/lora_phy_tpu_torch/``).
 Imports no JAX. Phases, one line each (or a few):
 
 0. the card: ``nvidia-smi`` name and power limit, and torch's device name;
-1. build and load the CUDA kernel (seconds);
+1. build and load the CUDA kernels (seconds: one nvcc per source, in parallel);
 2. the kernel against its plain PyTorch twin on the card: SF5-7, with and
    without the Hann window, at random nonzero start/rate and a per-row
    amplitude scale — clean chirp rows bit-equal, noise rows (a ragged
@@ -141,13 +141,30 @@ Imports no JAX. Phases, one line each (or a few):
    strong one every time; (e) scope's panels and rows on the card against
    the CPU over phase 14's cf32 file, and its PNG where matplotlib is
    installed (else the CLI's exit 1); (f) utils.profiling.trace around one
-   demodulate_planar call: a Chrome trace naming CUDA kernels.
+   demodulate_planar call: a Chrome trace naming CUDA kernels;
+19. the bf16 decision kernel (csrc/bf16_decide.cu, the precision="bf16"
+   path): the bf16_decide launches of every path of phases 3-18 (0 each);
+   (a) the kernel against its plain PyTorch version at SF2-12, with and
+   without the Hann window: clean tones (a random bin, CFO and amplitude
+   per frame) equal with and without their rotation planes and at their
+   bins; 4095 noise rows equal outside bf16_decide.near_tie, the excluded
+   rows counted; tie rows to the lowest natural bin; (b) the SF7 main path
+   at bench.py's shape (8 x 8192 frames) through
+   demodulate_planar(precision="bf16"): every payload bit-exact, sync 0x12,
+   one launch per call (counted), offsets equal to float32's; its time
+   against plain f32 and fused=True; the kernel alone on the path's rows
+   against its bound, its plain version and cuBLAS's bf16 GEMM on the same
+   operands (a yardstick the port never calls); a profile; (c) the same at
+   SF12 over roofline's 1 x 1024 frames (276.8 M samples); (d) bf16
+   against f32 decisions under AWGN at SF7 (393,216 data symbols at 0, -6
+   and -9 dB per sample); (e) card against CPU decisions on 16 frames with
+   CFOs at SF7 and SF12.
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
 SIC loop and the blind receiver's six SFs (phases 12-13), the flowgraph and
 phase 18's sweep. Phases 14-18 write their files to a temporary directory. Then a JSON
-line of the kernels (with the launches counted on each path) and, last,
+line of the two kernels (with the launches counted on each path) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
@@ -166,9 +183,10 @@ import time
 import numpy as np
 import torch
 
-from lora_phy_tpu_torch import Bandwidth, LoraParams, Window, _build
+from lora_phy_tpu_torch import Bandwidth, LoraParams, Window, _build, device_table
 from lora_phy_tpu_torch.models import coded, modem, sic, soft, stream, sync
 from lora_phy_tpu_torch.ops import channelizer, impair, planar
+from lora_phy_tpu_torch.ops import bf16_decide as bf16
 from lora_phy_tpu_torch.ops import fused_demod as fused
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # HBM bandwidth; one definition, in the port's profiling module
@@ -226,6 +244,35 @@ VECTOR_CELLS = tuple((sf, 1, Window.NONE, 0.0, 0.0) for sf in range(7, 13)) + (
     (7, 2, Window.HANN, 0.25, 2.0), (9, 2, Window.NONE, 0.25, -3.0),
     (12, 1, Window.NONE, 0.5, 0.0), (12, 2, Window.HANN, 0.0, 2.0))
 PERF_PACKETS, SWEEP_TRIALS = 1000, 16
+# the bf16 decision kernel (phase 19): noise rows per SF (585 frames of 7
+# windows, a count no tile size divides), clean-tone frames per SF; frames
+# of the SF12 path (roofline's 1 x 1024); the AWGN probe's per-sample SNRs
+# and frames per channel (8 x 768 frames x 64 data symbols = 393,216 per
+# SNR); frames of the card-against-CPU prefix
+BF16_NOISE_FRAMES, BF16_WINDOWS, BF16_TONE_FRAMES = 585, 7, 64
+BF16_SF12_FRAMES = 1024
+BF16_AWGN_SNRS, BF16_AWGN_FRAMES = (0.0, -6.0, -9.0), 768
+BF16_CPU_FRAMES = 16
+
+
+# the bf16 decision kernel's (and fused_demod's) launches on each path,
+# read by read_launches
+BF16_BY_PATH, FUSED_BY_PATH = {}, {}
+
+
+def reset_launches():
+    """Set both kernels' launch counters to 0 just before a path."""
+    fused.LAUNCHES = 0
+    bf16.LAUNCHES = 0
+
+
+def read_launches(path):
+    """Read both counters just after ``path``: each kernel's launches are
+    added to its BF16_BY_PATH / FUSED_BY_PATH entry; fused_demod's are
+    returned."""
+    BF16_BY_PATH[path] = BF16_BY_PATH.get(path, 0) + bf16.LAUNCHES
+    FUSED_BY_PATH[path] = FUSED_BY_PATH.get(path, 0) + fused.LAUNCHES
+    return fused.LAUNCHES
 
 
 def check(ok, msg):
@@ -413,14 +460,22 @@ def main():
         other.update(phase17_mesh(dev, card, tmp, cli_truth, cli_out))
         torch.cuda.empty_cache()
         other.update(phase18_last_slice(dev, card, tmp))
+    torch.cuda.empty_cache()
+    earlier = dict(BF16_BY_PATH)
+    check(not any(earlier.values()), f"bf16_decide launched on an earlier path: {earlier}")
+    print(f"phase 19: bf16_decide launches on each path of phases 3-18: {earlier}", flush=True)
+    record19 = phase19_bf16(dev, card)
+    other.update({k: v for k, v in FUSED_BY_PATH.items() if k.startswith("bf16_")})
 
     check("jax" not in sys.modules, "the port imported JAX")
-    # the new paths reach no kernel of the port (none is a Pallas kernel in
-    # JAX): their counts are read from the counter all the same
+    # every path but the main and coded ones reaches no fused_demod launch
+    # (none calls demodulate_planar(fused=True), as in JAX): their counts are
+    # read from the counter all the same
     record["launches_by_path"] = {"main": record["launches"], "coded": coded_launches,
                                   **other}
     record["launches"] += coded_launches
-    print(json.dumps({"kernels": [record]}), flush=True)
+    record19["launches_by_path"] = dict(BF16_BY_PATH)
+    print(json.dumps({"kernels": [record, record19]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
@@ -436,7 +491,7 @@ def phase3_4_main_path(dev, card):
     total_samples = CHANNELS * FRAMES * (2 * PAYLOAD_LEN + 2) * p.step
     torch.cuda.synchronize()
 
-    fused.LAUNCHES = 0
+    reset_launches()
     syms = modem.encode(full)
     re, im = planar.modulate_planar(syms, p)
     xr, xi = planar.dechirp_planar(re, im, p)
@@ -444,7 +499,7 @@ def phase3_4_main_path(dev, card):
     res = planar.demodulate_planar(xr, xi, p, fused=True)
     decoded = modem.decode(res.symbols)
     torch.cuda.synchronize()
-    launches = fused.LAUNCHES
+    launches = read_launches("main")
 
     check(tuple(xr.shape) == (CHANNELS, FRAMES, total_samples // (CHANNELS * FRAMES)),
           f"dechirped planes have shape {tuple(xr.shape)}")
@@ -582,10 +637,10 @@ def phase5_block_receiver(dev, card):
                                          min_power_db=-30.0)
 
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     blk = run()
     torch.cuda.synchronize()
-    launches = fused.LAUNCHES
+    launches = read_launches("block")
     n_found = check_block(blk, pay, CHANNELS * (BLOCK_FRAMES - 1), "phase 5")
     starts = blk.start[blk.found]
     true = torch.remainder(starts, period) == 0
@@ -707,12 +762,12 @@ def phase8_coded_main_path(dev, card):
     p = LoraParams(sf=7)
     cfg = coded.CodedConfig(sf=7, cr=1)
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     full, syms, xr, xi = coded_chain(dev, cfg, CHANNELS, FRAMES, seed=8)
     res = planar.demodulate_planar(xr, xi, p, fused=True)
     check_coded(res, full, cfg, "phase 8")
     torch.cuda.synchronize()
-    launches = fused.LAUNCHES
+    launches = read_launches("coded")
     nsym = coded.payload_symbol_count(PAYLOAD_LEN, cfg)
     check(tuple(syms.shape) == (CHANNELS, FRAMES, nsym), f"coded symbols {tuple(syms.shape)}")
     check(launches > 0, "the coded main path did not launch the fused kernel")
@@ -943,10 +998,10 @@ def phase11_wideband(dev, card):
     xr = torch.randn(n, generator=gen, device=dev)
     xi = torch.randn(n, generator=gen, device=dev)
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     cr, ci = channelizer.channelize_planar(xr, xi, k, taps)
     torch.cuda.synchronize()
-    chan_launches = fused.LAUNCHES
+    chan_launches = read_launches("channelize")
     head = 1 << 16
     hr, hi = channelizer.channelize_planar(xr[:head].cpu(), xi[:head].cpu(), k, taps)
     m = head // k - taps                      # frames whose windows lie in the head
@@ -980,10 +1035,10 @@ def phase11_wideband(dev, card):
         return sync.receive_wideband_planar(wr, wi, k, p, n_pay, with_spectra=spectra, **kw)
 
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     blk = run()
     torch.cuda.synchronize()
-    wb_launches = fused.LAUNCHES
+    wb_launches = read_launches("wideband")
     n_found = check_block(blk, pay, k * (BLOCK_FRAMES - 1), "phase 11")
     total = wr.numel()
     t_wb = cuda_ms(run, iters=5)
@@ -1052,10 +1107,10 @@ def phase12_block_modes(dev, card, xr5, xi5, pay5):
 
     def counted(name, fn):
         torch.cuda.synchronize()
-        fused.LAUNCHES = 0
+        reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        launches[name] = fused.LAUNCHES
+        launches[name] = read_launches(name)
         return out
 
     def receive(pre_acc):
@@ -1213,11 +1268,11 @@ def phase13_sic(dev, card):
                                                               min_power_db=-30.0))
             weak_plain += hit(plain, off_b, pay_b)
             torch.cuda.synchronize()
-            fused.LAUNCHES = 0
+            reset_launches()
             t0 = time.perf_counter()
             frames, _ = sic.receive_sic_planar(xr, xi, p, n_pay, **kw)
             host += time.perf_counter() - t0
-            launches += fused.LAUNCHES
+            launches += read_launches("sic")
             peels += len(frames)
             weak_sic += hit(frames, off_b, pay_b)
             strong_sic += hit(frames, off_a, pay_a)
@@ -1334,11 +1389,11 @@ def phase14_cli(dev, card, tmp):
         check(rc == 0, f"phase 14 tx_stream {fmt}: rc {rc}: {err}")
         n_samples = CLI_FRAMES * period
         torch.cuda.synchronize()
-        fused.LAUNCHES = 0
+        reset_launches()
         rc, out, err, t_rx = run_main(rx_stream.main, [
             f"--in={path}", f"--format={fmt}", "--payload-len=16", blk, maxf, dev_flag])
         torch.cuda.synchronize()
-        launches[f"cli_block_{fmt}"] = fused.LAUNCHES
+        launches[f"cli_block_{fmt}"] = read_launches(f"cli_block_{fmt}")
         check(rc == 0, f"phase 14 rx_stream {fmt}: rc {rc}: {err}")
         check_cli_frames(out, err, truth, f"phase 14 rx_stream {fmt}")
         cli_lines[fmt] = out
@@ -1397,10 +1452,11 @@ def phase14_cli(dev, card, tmp):
     for extra in ([], ["--soft"]):
         label = f"phase 14 --adaptive{' --soft' if extra else ''}"
         torch.cuda.synchronize()
-        fused.LAUNCHES = 0
+        reset_launches()
         rc, out, err, t_rx = run_main(rx_stream.main, [
             f"--in={cpath}", "--adaptive", blk, dev_flag] + extra)
-        launches["cli_adaptive" + ("_soft" if extra else "")] = fused.LAUNCHES
+        launches["cli_adaptive" + ("_soft" if extra else "")] = read_launches(
+            "cli_adaptive" + ("_soft" if extra else ""))
         lines = out.splitlines()
         check(rc == 0 and len(lines) == CLI_CODED_FRAMES, f"{label}: rc {rc}, "
               f"{len(lines)} frames of {CLI_CODED_FRAMES}")
@@ -1422,12 +1478,12 @@ def phase14_cli(dev, card, tmp):
     n_wide = wr.numel()
     del wr, wi
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     rc, out, err, t_rx = run_main(rx_stream.main, [
         f"--in={wpath}", "--payload-len=16", f"--channels={k}", f"--taps={WIDEBAND_TAPS}",
         blk, dev_flag])
     torch.cuda.synchronize()
-    launches["cli_wideband"] = fused.LAUNCHES
+    launches["cli_wideband"] = read_launches("cli_wideband")
     check(rc == 0, f"phase 14 --channels: rc {rc}: {err}")
     wpay = wpay.cpu().numpy()
     per_ch = {c: [] for c in range(k)}
@@ -1516,10 +1572,10 @@ def phase14_cli(dev, card, tmp):
     launches["cli_modes"] = 0
     for name, margs, want in modes:
         torch.cuda.synchronize()
-        fused.LAUNCHES = 0
+        reset_launches()
         rc_c, out_c, err_c, t_c = run_main(rx_stream.main, margs + [dev_flag])
         torch.cuda.synchronize()
-        launches["cli_modes"] += fused.LAUNCHES
+        launches["cli_modes"] += read_launches("cli_modes")
         rc_h, out_h, err_h, _ = run_main(rx_stream.main, margs + ["--device=cpu"])
         check(rc_c == rc_h == 0, f"phase 14 {name}: rc {rc_c} / {rc_h}")
         same_lines(out_c, out_h, f"phase 14 {name} card vs CPU")
@@ -1534,7 +1590,7 @@ def phase14_cli(dev, card, tmp):
     from lora_phy_tpu_torch.models import gr_interop
 
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     for sf, ldro, implicit in ((7, False, False), (12, True, True)):
         pg = LoraParams(sf=sf)
         payload = b"hello world: %d" % sf
@@ -1550,7 +1606,7 @@ def phase14_cli(dev, card, tmp):
                   and vars(on_card) == vars(on_cpu),
                   f"phase 14 gr interop SF{sf} soft={soft}: {on_card} / {on_cpu}")
     torch.cuda.synchronize()
-    launches["gr_interop"] = fused.LAUNCHES
+    launches["gr_interop"] = read_launches("gr_interop")
     print("phase 14: gr_interop encode_frame -> decode_frame on the card, SF7 explicit and "
           "SF12 LDRO implicit, hard and soft: bytes exact, crc_ok, every field equal to the "
           "CPU's", flush=True)
@@ -1559,7 +1615,7 @@ def phase14_cli(dev, card, tmp):
     from lora_phy_tpu_torch.runners import gr_decode, rx_runner, tx_runner
 
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     for flags in ([], ["--sf=9", "--bw=250000", "--osr=2"]):
         files = {}
         for d in (dev_flag, "--device=cpu"):
@@ -1595,7 +1651,7 @@ def phase14_cli(dev, card, tmp):
           and outs[0][1].count("crc=ok") == 2 and "hello world: 1" in outs[0][1],
           f"phase 14 gr_decode: {[o[:2] for o in outs]}")
     torch.cuda.synchronize()
-    launches["cli_runners"] = fused.LAUNCHES
+    launches["cli_runners"] = read_launches("cli_runners")
     print("phase 14: tx_runner / rx_runner (SF7; SF9 BW250 osr 2) and gr_decode (two gr-"
           "convention frames, hard and soft) on the card: IQ bytes and printed lines equal "
           "to the CPU's, both gr frames crc=ok", flush=True)
@@ -1626,7 +1682,7 @@ def phase15_awgn(dev, card, tmp):
             return awgn_model._simulate_point_planar(snr, sf, "4/5", packets, AWGN_PAYLOAD, gen)
 
         torch.cuda.synchronize()
-        fused.LAUNCHES = 0
+        reset_launches()
         point(0.0)
         torch.cuda.reset_peak_memory_stats()
         pers, rows, times = {}, [], []
@@ -1647,7 +1703,7 @@ def phase15_awgn(dev, card, tmp):
             if snr == AWGN_SNRS[0]:
                 first = (ms, host)
         torch.cuda.synchronize()
-        launches += fused.LAUNCHES
+        launches += read_launches("awgn")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         med = statistics.median(times)
         check(pers[12.0] == 0.0, f"phase 15 SF{sf}: PER {pers[12.0]} at 12 dB")
@@ -1819,7 +1875,7 @@ def phase16_flowgraph(dev, card, tmp):
     from lora_phy_tpu_torch.runners import topology_runner
 
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     for sf, ampl in FLOW_CASES:
         sim_topology(dev, sf, ampl, seed=sf).run(1)          # warm-up (plans, handles)
         torch.cuda.synchronize()
@@ -1855,11 +1911,12 @@ def phase16_flowgraph(dev, card, tmp):
     check("ChatBox1 <- b'lora test message 3'" in out_c
           and "ChatImpl <- b'lora test message 3'" in out_c, f"phase 16: {out_c}")
     torch.cuda.synchronize()
+    launches = read_launches("flowgraph")
     print(f"phase 16: {card}: topology_runner --ticks=4 on a written .pth (breaker net, disabled "
           f"block, signal wires, implicit decoder with dataLength): {lc[0]}; its lines equal "
-          f"--device=cpu's; {t_c:.2f} s on the card; fused_demod launches {fused.LAUNCHES}",
+          f"--device=cpu's; {t_c:.2f} s on the card; fused_demod launches {launches}",
           flush=True)
-    return {"flowgraph": fused.LAUNCHES}
+    return {"flowgraph": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1904,10 +1961,10 @@ def phase17_mesh(dev, card, tmp, cli_truth, cli_out):
 
     def counted(name, fn):
         torch.cuda.synchronize()
-        fused.LAUNCHES = 0
+        reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        launches[name] = launches.get(name, 0) + fused.LAUNCHES
+        launches[name] = launches.get(name, 0) + read_launches(name)
         return out
 
     # (a) the streaming demod at the main path's width: each channel's
@@ -2001,10 +2058,10 @@ def phase17_mesh(dev, card, tmp, cli_truth, cli_out):
     args = [f"--in={path}", "--payload-len=16", f"--block={CLI_BLOCK}",
             f"--max-frames={CLI_MAX_FRAMES}"]
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     rc, out, err, t_rx = run_main(rx_stream.main, args + ["--mesh=1", f"--device={dev}"])
     torch.cuda.synchronize()
-    launches["mesh_cli"] = fused.LAUNCHES
+    launches["mesh_cli"] = read_launches("mesh_cli")
     check(rc == 0, f"phase 17 (c) --mesh=1: rc {rc}: {err}")
     check_cli_frames(out, err, cli_truth, "phase 17 (c) --mesh=1")
     same_lines(out, cli_out, "phase 17 (c) --mesh=1 against rx_stream")
@@ -2113,16 +2170,19 @@ def phase17_mesh(dev, card, tmp, cli_truth, cli_out):
     launches["mesh_multiprocess"] = sum(
         int(line.split("launches=")[1].split()[0]) for out, _ in outs
         for line in out.splitlines() if "launches=" in line)
+    BF16_BY_PATH["mesh_multiprocess"] = sum(
+        int(line.split("bf16_launches=")[1].split()[0]) for out, _ in outs
+        for line in out.splitlines() if "bf16_launches=" in line)
 
     # (f) bench_scaling on the visible cards
     from lora_phy_tpu_torch.runners import bench_scaling
 
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     rc, out, err, t_b = run_main(bench_scaling.main, ["--devices=1", f"--frames={SCALING_FRAMES}",
                                                       f"--device={dev}"])
     torch.cuda.synchronize()
-    launches["bench_scaling"] = fused.LAUNCHES
+    launches["bench_scaling"] = read_launches("bench_scaling")
     check(rc == 0, f"phase 17 (f) bench_scaling: rc {rc}: {err}")
     doc = json.loads(out)
     row = doc["rows"][0]
@@ -2146,15 +2206,16 @@ IQ_CSV_TOL = 5e-7 + 1e-6
 OFFSET_CSV_TOL = 5e-7 + 1e-6 + 1e-6
 
 
-def counted(fn):
-    """``fn()`` with the kernel counter set to 0 just before it and read just
-    after: (its result, the launches, host seconds)."""
+def counted(fn, path):
+    """``fn()`` with the kernel counters set to 0 just before it and read
+    just after (as ``path``): (its result, the fused_demod launches, host
+    seconds)."""
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, fused.LAUNCHES, time.perf_counter() - t0
+    return out, read_launches(path), time.perf_counter() - t0
 
 
 def same_iq_csv(a, b, tol, label):
@@ -2189,7 +2250,8 @@ def phase18a_vectors(dev, card, tmp):
                   b64=False)
         label = f"phase 18 (a) SF{sf} osr {osr} {window.name} cfo {cfo:g} shift {shift:g}"
         on_card, n, t_card = counted(
-            lambda: vector_generate.generate(tmp / "vg_card", p, device=dev, **kw))
+            lambda: vector_generate.generate(tmp / "vg_card", p, device=dev, **kw),
+            "vector_generate")
         launches["vector_generate"] += n
         t0 = time.perf_counter()
         on_cpu = vector_generate.generate(tmp / "vg_cpu", p, device="cpu", **kw)
@@ -2212,7 +2274,8 @@ def phase18a_vectors(dev, card, tmp):
 
     dev_flag = f"--device={dev}"
     (rc, _, err, _), n, t_cv = counted(lambda: run_main(
-        comprehensive_vector_generate.main, [f"--out={tmp / 'cv_card'}", dev_flag]))
+        comprehensive_vector_generate.main, [f"--out={tmp / 'cv_card'}", dev_flag]),
+        "comprehensive_vectors")
     launches["comprehensive_vectors"] = n
     rc_h, _, err_h, t_h = run_main(comprehensive_vector_generate.main,
                                    [f"--out={tmp / 'cv_cpu'}", "--device=cpu"])
@@ -2225,7 +2288,7 @@ def phase18a_vectors(dev, card, tmp):
 
     dump = ["--sf=9", f"--bytes={VECTOR_BYTES}"]
     (rc, _, err, _), n, t_d = counted(lambda: run_main(
-        vector_dump.main, dump + [f"--out={tmp / 'dump_card'}", dev_flag]))
+        vector_dump.main, dump + [f"--out={tmp / 'dump_card'}", dev_flag]), "vector_dump")
     launches["vector_dump"] = n
     rc_h = run_main(vector_dump.main, dump + [f"--out={tmp / 'dump_cpu'}", "--device=cpu"])[0]
     rc_s = run_main(vector_dump.main, dump + ["--seed=2", f"--out={tmp / 'dump_seed2'}",
@@ -2255,7 +2318,8 @@ def phase18b_perf(dev, card, tmp):
                           ("chip_matrix", [f"--profiles={REPO / 'profiles' / 'perf_matrix.yaml'}"])):
         os.environ["RUN_ID"] = run_id
         (rc, _, err, _), n, t = counted(lambda: run_main(perf_test.main, [
-            f"--packets={PERF_PACKETS}", f"--out-dir={out_dir}", f"--device={dev}"] + extra))
+            f"--packets={PERF_PACKETS}", f"--out-dir={out_dir}", f"--device={dev}"] + extra),
+            "perf_test")
         launches += n
         path = out_dir / f"performance_{run_id}.csv"
         check(rc == 0 and path.exists(), f"phase 18 (b) perf_test {run_id}: rc {rc}: {err}")
@@ -2298,7 +2362,7 @@ def phase18_last_slice(dev, card, tmp):
     torch.cuda.empty_cache()
 
     # (c) roofline at its defaults
-    (rc, out, err, _), n, t = counted(lambda: run_main(roofline.main, [dev_flag]))
+    (rc, out, err, _), n, t = counted(lambda: run_main(roofline.main, [dev_flag]), "roofline")
     launches["roofline"] = n
     lines = out.splitlines()
     check(rc == 0 and len(lines) == 4 and lines[0].startswith("dispatch overhead: ")
@@ -2312,7 +2376,7 @@ def phase18_last_slice(dev, card, tmp):
 
     # (d) sic_sweep over its default gaps, cut to SWEEP_TRIALS trials per gap
     (rc, out, err, _), n, t = counted(lambda: run_main(
-        sic_sweep.main, [f"--trials={SWEEP_TRIALS}", dev_flag]))
+        sic_sweep.main, [f"--trials={SWEEP_TRIALS}", dev_flag]), "sic_sweep")
     launches["sic_sweep"] = n
     lines = out.splitlines()
     check(rc == 0 and lines[0] == sic_sweep.HEADER and len(lines) == 6,
@@ -2335,7 +2399,7 @@ def phase18_last_slice(dev, card, tmp):
     re, im = runtime.to_planar(np.fromfile(path, np.float32)[: 2 * (1 << 21)])
     p = LoraParams(sf=7)
     (st, up, rows), n, t = counted(lambda: scope.panels(
-        torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev), p, CLI_PAYLOAD))
+        torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev), p, CLI_PAYLOAD), "scope")
     launches["scope"] = n
     hst, hup, hrows = scope.panels(torch.from_numpy(re), torch.from_numpy(im), p, CLI_PAYLOAD)
     errs = [float((got.cpu() - ref).abs().max() / ref.max()) for got, ref in
@@ -2371,10 +2435,10 @@ def phase18_last_slice(dev, card, tmp):
         0, 256, (CHANNELS, BLOCK_FRAMES, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
     xr, xi = planar.dechirp_planar(*planar.modulate_planar(modem.encode(pay), p), p)
     torch.cuda.synchronize()
-    fused.LAUNCHES = 0
+    reset_launches()
     with profiling.trace(tmp / "trace") as log_dir:
         res = planar.demodulate_planar(xr, xi, p)
-    launches["trace"] = fused.LAUNCHES
+    launches["trace"] = read_launches("trace")
     check(torch.equal(modem.decode(res.symbols), pay), "phase 18 (f): decoded payloads differ")
     events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
@@ -2387,6 +2451,326 @@ def phase18_last_slice(dev, card, tmp):
     print(f"phase 18: fused_demod launches on each path: {launches} (none of these paths "
           f"calls demodulate_planar(fused=True), as in JAX)", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the bf16 decision kernel
+# ---------------------------------------------------------------------------
+
+def bf16_top2_gap(yr, yi, n, cr, si, rows_per_rot):
+    """Relative gap between the plain version's two largest |.|^2 per row."""
+    fr, fi = bf16._derotate(yr, yi, n, cr, si, rows_per_rot)
+    top2 = planar.dft_mag2_planar(fr, fi, n, mxu_dtype=torch.bfloat16).topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) / top2[:, 0]
+
+
+def bf16_tone_rows(gen, p, frames, windows, dev):
+    """Clean tones [frames*windows, N], a random bin per window, with a
+    random per-frame CFO (within half a bin) and amplitude (1-8), and the
+    per-frame rotation planes (with the window) that take both out."""
+    n = p.n
+    bins = gen.randint(0, n, (frames, windows))
+    cfo = gen.uniform(-0.5, 0.5, frames)
+    gain = gen.uniform(1.0, 8.0, frames)
+    ph = 2 * np.pi * (bins[..., None] + cfo[:, None, None]) * np.arange(n) / n
+    y = (gain[:, None, None] * np.exp(1j * ph)).reshape(-1, n)
+    rate = torch.from_numpy((-2 * np.pi * cfo / n).astype(np.float32)).to(dev)
+    scale = torch.from_numpy((1.0 / gain).astype(np.float32)).to(dev)
+    cr, si = planar._rotation_planes(rate, scale, p)
+    return (torch.from_numpy(y.real.astype(np.float32)).to(dev),
+            torch.from_numpy(y.imag.astype(np.float32)).to(dev),
+            cr.contiguous(), si.contiguous(), bins.reshape(-1))
+
+
+def bf16_compare(label, yr, yi, n, rot, rows_per_rot, clean):
+    """The kernel against its plain version on the same rows: equal bins
+    (clean rows), or equal outside bf16.near_tie (noise rows); peaks within
+    bf16.near_tie relative. Returns (differing, excluded, max peak error)."""
+    k, kp = bf16.bf16_decide_rows(yr, yi, n, *rot, rows_per_rot=rows_per_rot, with_peak=True)
+    r, rp = bf16.bf16_decide_rows_reference(yr, yi, n, *rot, rows_per_rot=rows_per_rot,
+                                            with_peak=True)
+    differ = (k != r).nonzero().flatten()
+    excluded = 0
+    if clean:
+        check(differ.numel() == 0, f"{label}: {differ.numel()} clean rows differ")
+    elif differ.numel():
+        args = [t[differ] if t is not None else None for t in (yr, yi)]
+        rot_d = rot
+        if rot[0] is not None:
+            rot_d = (rot[0][differ // rows_per_rot], rot[1][differ // rows_per_rot])
+        gap = bf16_top2_gap(*args, n, *rot_d, 1)
+        excluded = int((gap <= bf16.near_tie(n)).sum())
+        check(excluded == differ.numel(),
+              f"{label}: {differ.numel() - excluded} rows differ beyond a "
+              f"{bf16.near_tie(n):g} near-tie (gaps {gap.tolist()[:8]})")
+    peak_err = float(((kp - rp).abs() / rp.clamp_min(1e-30)).max())
+    check(peak_err <= bf16.near_tie(n),
+          f"{label}: peak |.|^2 {peak_err:.3g} relative from the plain version")
+    return differ.numel(), excluded, peak_err
+
+
+def phase19a_kernel_vs_plain(dev):
+    """The kernel against its plain version at every SF, with and without
+    the window and the rotation: clean tones equal, noise rows equal
+    outside a near-tie, crafted ties to the lowest natural bin."""
+    gen = np.random.RandomState(19)
+    for sf in range(2, 13):
+        for window in (Window.NONE, Window.HANN):
+            p = LoraParams(sf=sf, window=window)
+            n = p.n
+            yr, yi, cr, si, bins = bf16_tone_rows(gen, p, BF16_TONE_FRAMES, BF16_WINDOWS, dev)
+            bf16_compare(f"phase 19 (a) SF{sf} {window.name} tones", yr, yi, n, (cr, si),
+                         BF16_WINDOWS, clean=True)
+            k = bf16.bf16_decide_rows(yr, yi, n, cr, si, rows_per_rot=BF16_WINDOWS)
+            check(np.array_equal(k.cpu().numpy(), bins), f"phase 19 (a) SF{sf} "
+                  f"{window.name}: tones decided at the wrong bin")
+            # the same tones without their CFO, without rotation
+            ph = 2 * np.pi * bins[:, None] * np.arange(n) / n
+            tr = torch.from_numpy(np.cos(ph).astype(np.float32)).to(dev)
+            ti = torch.from_numpy(np.sin(ph).astype(np.float32)).to(dev)
+            bf16_compare(f"phase 19 (a) SF{sf} tones, no rotation", tr, ti, n, (None, None), 1,
+                         clean=True)
+            # noise rows, with and without rotation
+            b = BF16_NOISE_FRAMES * BF16_WINDOWS
+            nr = torch.from_numpy(gen.randn(b, n).astype(np.float32)).to(dev)
+            ni = torch.from_numpy(gen.randn(b, n).astype(np.float32)).to(dev)
+            rate = uniform_rows(gen, BF16_NOISE_FRAMES, -0.5, 0.5, dev) * (2 * np.pi / n)
+            scale = uniform_rows(gen, BF16_NOISE_FRAMES, 0.2, 1.0, dev)
+            rot = tuple(t.contiguous() for t in planar._rotation_planes(rate, scale, p))
+            stats = [bf16_compare(f"phase 19 (a) SF{sf} {window.name} noise{tag}", nr, ni, n,
+                                  r, BF16_WINDOWS, clean=False)
+                     for tag, r in ((" rotated", rot), ("", (None, None)))]
+            print(f"phase 19 (a): SF{sf} window={window.name}: {bins.size} clean tone rows "
+                  f"equal, rotated and not, at their bins; {b} noise rows rotated / not: "
+                  f"{stats[0][0]} / {stats[1][0]} differ, {stats[0][1]} / {stats[1][1]} "
+                  f"excluded as near-ties (top-2 within {bf16.near_tie(n):g}); peaks within "
+                  f"{max(st[2] for st in stats):.3g} relative", flush=True)
+        # crafted ties (no rotation): delta(0) - delta(N/2) ties every odd
+        # bin exactly (bin 1); at N <= 128 the alternating impulse ties bins
+        # 0 and N/2 (bin 0)
+        ties = torch.zeros(2, n, device=dev)
+        ties[:, 0], ties[0, n // 2] = 1.0, -1.0
+        want = [1, 0]
+        if n <= 128:
+            ties[1, ::2] = 1.0
+        else:
+            ties, want = ties[:1], want[:1]
+        z = torch.zeros_like(ties)
+        k = bf16.bf16_decide_rows(ties, z, n)
+        r = bf16.bf16_decide_rows_reference(ties, z, n)
+        check(k.tolist() == want and r.tolist() == want,
+              f"phase 19 (a) SF{sf}: tie rows gave {k.tolist()} (plain {r.tolist()}), want {want}")
+    print("phase 19 (a): tie rows -> the lowest natural bin at every SF (odd-bin tie -> 1; "
+          "alternating impulse -> 0 at N <= 128)", flush=True)
+
+
+def bf16_bound(rows, frames, n):
+    """(bound ms, by, flop, bytes) of one bf16 decision call: the rows and
+    rotation planes read once, the bins written once; the dense products
+    of the bf16 function, 8 N^2 flop a row (N <= 128) or 8 N (n1 + n2) in
+    the four-step, at the bf16 tensor-core peak."""
+    from lora_phy_tpu_torch.ops.fft import _split
+    from lora_phy_tpu_torch.utils.profiling import H100_BF16_FLOPS
+
+    if n <= 128:
+        flops = rows * 8 * n * n
+    else:
+        n1, n2 = _split(n)
+        flops = rows * 8 * n * (n1 + n2)
+    nbytes = 4 * (2 * rows * n + 2 * frames * n + rows)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def bf16_library_ms(fr, fi, n):
+    """cuBLAS's bf16 GEMM (bf16 out) alone on the same bf16 operands as the
+    kernel's products: the combined [rows, 2N] @ [2N, 2N] at N <= 128, the
+    four-step's two stage products (stage 2 on the plain version's own
+    twiddled operand) above. A yardstick the port never calls."""
+    bf = torch.bfloat16
+    if n <= 128:
+        a = torch.cat([fr, fi], dim=-1).to(bf)
+        m = torch.from_numpy(planar._combined_dft_mat(n)).to(fr.device).to(bf)
+        return cuda_ms(lambda: torch.matmul(a, m), calls=10)
+    m2, m1r, twr, twi, n1, n2 = device_table(planar._scrambled_mats, n, device=fr.device)
+    lead = fr.shape[:-1]
+    xst = torch.cat([fr.reshape(*lead, n2, n1).swapaxes(-1, -2),
+                     fi.reshape(*lead, n2, n1).swapaxes(-1, -2)], dim=-1)
+    a1 = xst.to(bf).reshape(-1, 2 * n2)
+    ar_ai = planar._mm(xst, m2, bf)
+    ar, ai = ar_ai[..., :n2], ar_ai[..., n2:]
+    a2 = torch.cat([(ar * twr - ai * twi).swapaxes(-1, -2),
+                    (ar * twi + ai * twr).swapaxes(-1, -2)], dim=-1).to(bf).reshape(-1, 2 * n1)
+    del xst, ar_ai, ar, ai
+    b2, b1 = m2.to(bf), m1r.to(bf)
+    return cuda_ms(lambda: (torch.matmul(a1, b2), torch.matmul(a2, b1)), calls=10)
+
+
+def bf16_path(dev, card, label, p, channels, frames, path):
+    """One bf16 decision path at full width: encode -> modulate -> dechirp
+    -> demodulate_planar(precision='bf16') -> decode, every payload
+    bit-exact, sync 0x12, one kernel launch per call (counted); the demod
+    against plain f32 (and fused=True at N <= 128); the kernel alone, its
+    bound, its plain version and cuBLAS's bf16 GEMM on the same rows; a
+    profile. Returns the numbers for the JSON line."""
+    pool = torch.from_numpy(np.random.RandomState(p.sf).randint(
+        0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    full = pool.repeat(channels * frames // POOL, 1).reshape(channels, frames, PAYLOAD_LEN)
+    re, im = planar.modulate_planar(modem.encode(full), p)
+    xr, xi = planar.dechirp_planar(re, im, p)
+    del re, im
+    total = xr.numel()
+    torch.cuda.synchronize()
+    reset_launches()
+    res = planar.demodulate_planar(xr, xi, p, precision="bf16")
+    decoded = modem.decode(res.symbols)
+    torch.cuda.synchronize()
+    fused_n = read_launches(path)
+    launches = BF16_BY_PATH[path]
+    check(launches == 1 and fused_n == 0, f"{label}: {launches} bf16 / {fused_n} fused "
+          f"launches in one demodulate_planar(precision='bf16') call")
+    check(torch.equal(decoded, full), f"{label}: decoded payloads differ")
+    check(bool((res.sync_word == 0x12).all()), f"{label}: sync word is not 0x12")
+    check(bool(torch.isfinite(res.cfo).all() and torch.isfinite(res.time_offset).all()),
+          f"{label}: non-finite cfo / time_offset")
+    f32 = planar.demodulate_planar(xr, xi, p)
+    check(torch.equal(res.cfo, f32.cfo) and torch.equal(res.time_offset, f32.time_offset),
+          f"{label}: the float32 front's offsets differ between precisions")
+    t_bf16 = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, precision="bf16"))
+    t_f32 = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p))
+    t_fused = (cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, fused=True))
+               if p.n <= 128 else None)
+    fused_txt = "" if t_fused is None else f", fused=True {t_fused:.3f} ms"
+    print(f"{label}: {card}: {channels * frames} frames ({total / 1e6:.1f} M IQ samples) "
+          f"decoded bit-exact through demodulate_planar(precision='bf16'), sync 0x12, "
+          f"{launches} bf16_decide launch per call; precision='bf16' {t_bf16:.3f} ms "
+          f"({total / t_bf16 / 1e6:.3f} Gsamples/s), plain f32 {t_f32:.3f} ms{fused_txt}",
+          flush=True)
+    profile_once(lambda: planar.demodulate_planar(xr, xi, p, precision="bf16"),
+                 f"{label}: {card}: demodulate_planar(precision='bf16')")
+
+    # the kernel alone on the path's own rows and rotation planes
+    n = p.n
+    yr, yi, rate, _, scale, _, _ = planar._demod_stage_planar(xr, xi, p, False, None)
+    s_count = yr.shape[-2]
+    del xr, xi, res, f32
+    cr, si = (t.reshape(-1, n).contiguous() for t in planar._rotation_planes(rate, scale, p))
+    yr, yi = yr.reshape(-1, n).contiguous(), yi.reshape(-1, n).contiguous()
+    rows, nframes = yr.shape[0], cr.shape[0]
+    k = bf16.bf16_decide_rows(yr, yi, n, cr, si, rows_per_rot=s_count)
+    r = bf16.bf16_decide_rows_reference(yr, yi, n, cr, si, rows_per_rot=s_count)
+    max_abs_err = int((k.to(torch.int64) - r.to(torch.int64)).abs().max())
+    check(max_abs_err == 0, f"{label}: kernel vs plain version on the path's rows: "
+          f"{int((k != r).sum())} rows differ")
+    del r
+    t_kernel = cuda_ms(lambda: bf16.bf16_decide_rows(yr, yi, n, cr, si, rows_per_rot=s_count),
+                       calls=10)
+    t_plain = cuda_ms(lambda: bf16.bf16_decide_rows_reference(yr, yi, n, cr, si,
+                                                              rows_per_rot=s_count),
+                      iters=3)
+    bound_ms, bound_by, flops, nbytes = bf16_bound(rows, nframes, n)
+    fr, fi = bf16._derotate(yr, yi, n, cr, si, s_count)
+    del yr, yi
+    t_lib = bf16_library_ms(fr, fi, n)
+    del fr, fi
+    print(f"{label}: {card}: bf16_decide_rows on {rows} rows x N={n} with the frames' "
+          f"rotation: CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s, "
+          f"{flops / t_kernel / 1e9:.1f} TFLOP/s bf16), plain version {t_plain:.3f} ms; bins "
+          f"equal; bound {bound_ms:.3f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B), "
+          f"{bound_ms / t_kernel:.3f} of it; cuBLAS bf16 GEMM alone on the same operands "
+          f"(yardstick) {t_lib:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_abs_err, "ms": t_kernel,
+            "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t_lib, "demod_bf16_ms": t_bf16, "demod_f32_ms": t_f32,
+            "demod_fused_ms": t_fused, "rows": rows, "n": n}
+
+
+def phase19d_awgn(dev, card):
+    """bf16 against f32 decisions under AWGN at SF7: mismatches and symbol
+    errors against the clean frames' decisions, per per-sample SNR."""
+    p = LoraParams(sf=7)
+    pool = torch.from_numpy(np.random.RandomState(23).randint(
+        0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    full = pool.repeat(CHANNELS * BF16_AWGN_FRAMES // POOL, 1).reshape(
+        CHANNELS, BF16_AWGN_FRAMES, PAYLOAD_LEN)
+    cr0, ci0 = planar.dechirp_planar(*planar.modulate_planar(modem.encode(full), p), p)
+    truth = planar.demodulate_planar(cr0, ci0, p).symbols       # the clean decisions
+    check(torch.equal(modem.decode(truth), full), "phase 19 (d): clean frames")
+    gen = torch.Generator(device=dev)
+    for snr in BF16_AWGN_SNRS:
+        gen.manual_seed(int(1000 - snr))
+        sigma = float(np.sqrt(0.5 * 10.0 ** (-snr / 10.0)))
+        xr = cr0 + sigma * torch.randn(cr0.shape, generator=gen, device=dev)
+        xi = ci0 + sigma * torch.randn(ci0.shape, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        b = planar.demodulate_planar(xr, xi, p, precision="bf16")
+        torch.cuda.synchronize()
+        read_launches("bf16_awgn")
+        f = planar.demodulate_planar(xr, xi, p)
+        mism = int((b.symbols != f.symbols).sum())
+        err_b = int((b.symbols != truth).sum())
+        err_f = int((f.symbols != truth).sum())
+        print(f"phase 19 (d): {card}: SF7 AWGN at {snr:g} dB per sample, "
+              f"{b.symbols.numel()} data symbols: bf16 against f32 decisions differ in "
+              f"{mism}; symbol errors against the clean decisions: bf16 {err_b}, f32 {err_f}",
+              flush=True)
+    check(BF16_BY_PATH["bf16_awgn"] == len(BF16_AWGN_SNRS), "phase 19 (d): launches")
+
+
+def phase19e_card_vs_cpu(dev):
+    """demodulate_planar(precision='bf16') on a 16-frame prefix: the card's
+    decisions (the kernel) equal the CPU's (the plain version)."""
+    cpu = torch.device("cpu")
+    for sf in (7, 12):
+        p = LoraParams(sf=sf)
+        pay = torch.from_numpy(np.random.RandomState(sf).randint(
+            0, 256, (BF16_CPU_FRAMES, PAYLOAD_LEN)).astype(np.uint8))
+        xr, xi = planar.dechirp_planar(*planar.modulate_planar(modem.encode(pay), p), p)
+        # a per-frame CFO, so the rotation planes are not trivial (within the
+        # 2-symbol estimator's reach: it reads larger ones as timing)
+        cfo = torch.linspace(-0.2, 0.2, BF16_CPU_FRAMES)
+        ph = 2 * np.pi * cfo[:, None] * torch.arange(xr.shape[-1]) / p.n
+        xr, xi = xr * torch.cos(ph) - xi * torch.sin(ph), xr * torch.sin(ph) + xi * torch.cos(ph)
+        torch.cuda.synchronize()
+        reset_launches()
+        card_res = planar.demodulate_planar(xr.to(dev), xi.to(dev), p, precision="bf16")
+        torch.cuda.synchronize()
+        read_launches("bf16_card_vs_cpu")
+        cpu_res = planar.demodulate_planar(xr.to(cpu), xi.to(cpu), p, precision="bf16")
+        check(torch.equal(card_res.symbols.cpu(), cpu_res.symbols)
+              and torch.equal(card_res.sync_word.cpu(), cpu_res.sync_word),
+              f"phase 19 (e) SF{sf}: card and CPU decisions differ")
+        check(torch.equal(modem.decode(cpu_res.symbols), pay), f"phase 19 (e) SF{sf}: bytes")
+    print(f"phase 19 (e): demodulate_planar(precision='bf16') on {BF16_CPU_FRAMES} frames with "
+          f"CFOs of -0.2..0.2 bin at SF7 and SF12: the card's decisions equal the CPU's, "
+          f"payloads decoded", flush=True)
+
+
+def phase19_bf16(dev, card):
+    """Phase 19 (a)-(e); returns the bf16 kernel's record for the JSON line."""
+    phase19a_kernel_vs_plain(dev)
+    torch.cuda.empty_cache()
+    sf7 = bf16_path(dev, card, "phase 19 (b) SF7", LoraParams(sf=7), CHANNELS, FRAMES,
+                    "bf16_sf7")
+    sf12 = bf16_path(dev, card, "phase 19 (c) SF12", LoraParams(sf=12), 1, BF16_SF12_FRAMES,
+                     "bf16_sf12")
+    phase19d_awgn(dev, card)
+    torch.cuda.empty_cache()
+    phase19e_card_vs_cpu(dev)
+    return {"name": "bf16_decide", "route": "cuda",
+            "source": "lora_phy_tpu_torch/csrc/bf16_decide.cu",
+            # no Pallas kernel: the jnp code XLA fuses for precision="bf16"
+            "replaces": "lora_phy_tpu/ops/planar.py:179",
+            **{k: sf7[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+            "sf12": {k: sf12[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")},
+            "demod_ms": {"sf7_bf16": sf7["demod_bf16_ms"], "sf7_f32": sf7["demod_f32_ms"],
+                         "sf7_fused": sf7["demod_fused_ms"],
+                         "sf12_bf16": sf12["demod_bf16_ms"], "sf12_f32": sf12["demod_f32_ms"]}}
 
 
 def mesh_worker(rank, nproc, addr, backend):
@@ -2406,7 +2790,7 @@ def mesh_worker(rank, nproc, addr, backend):
                                              world_size=1, rank=0)
     m = meshlib.make_mesh(1, 2 * nproc, devices=[dev] * 2)
     p = LoraParams(sf=7)
-    fused.LAUNCHES = 0
+    fused.LAUNCHES = bf16.LAUNCHES = 0
     pool = torch.from_numpy(np.random.RandomState(0).randint(
         0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
     full = pool.repeat(CHANNELS * WORKER_FRAMES // POOL, 1).reshape(
@@ -2446,7 +2830,7 @@ def mesh_worker(rank, nproc, addr, backend):
     print(f"MESH WORKER OK rank {rank}/{nproc} {backend}: {CHANNELS} x {xr.shape[-1]} samples "
           f"over a 1x{m.n_time} mesh (2 shards here), symbols and payloads equal to the single "
           f"device; {t_ms:.3f} ms per call; the seam frame found once; launches="
-          f"{fused.LAUNCHES}", flush=True)
+          f"{fused.LAUNCHES} bf16_launches={bf16.LAUNCHES}", flush=True)
     torch.distributed.destroy_process_group()
     return 0
 

@@ -2,8 +2,10 @@
 
 A port of :mod:`lora_phy_tpu` (the JAX reference, which stays beside it)
 to PyTorch, with the one Pallas kernel of the JAX package rewritten by
-hand in CUDA C++ for Hopper (``csrc/fused_demod.cu``). Every function
-mirrors its JAX twin file for file:
+hand in CUDA C++ for Hopper (``csrc/fused_demod.cu``) and the opt-in
+``precision="bf16"`` decisions on the bf16 tensor cores in a second
+hand-written kernel (``csrc/bf16_decide.cu``). Every function mirrors its
+JAX twin file for file:
 
   ops/coding.py       the coding primitives: Hamming 8/4 and 7/4, parity
                       5/4 and 6/4, Gray, nibbles, bit pack, whiteners,
@@ -13,10 +15,13 @@ mirrors its JAX twin file for file:
                       gen_chirp and the AWGN model chirps
   ops/fft.py          FFT backends (torch.fft, the four-step DFT matmul)
   ops/detect.py       the complex detector (argmax, powers, fractional bin)
-  ops/planar.py       planar (re, im) TX, dechirp and demodulation, the
-                      preamble estimators, estimate / compensate offsets
+  ops/planar.py       planar (re, im) TX, dechirp and demodulation (f32,
+                      or bf16 DFT operands), the preamble estimators,
+                      estimate / compensate offsets
   ops/fused_demod.py  the fused scale + derotate + FFT + argmax kernel's
                       wrapper and its plain PyTorch twin
+  ops/bf16_decide.py  the bf16 derotate + DFT + argmax kernel's wrapper
+                      and its plain PyTorch version
   ops/impair.py       channel injectors (CFO, shift, AWGN, SRO, multipath,
                       front end) and the blind front-end corrector
   ops/channelizer.py  polyphase analysis and synthesis filter banks
@@ -63,7 +68,8 @@ defaults to the first CUDA card (:func:`device_of`). The port imports
 nothing of the JAX package; ``utils.params.from_fields`` carries a JAX
 ``LoraParams`` over.
 
-The parity contract is float32 on every device, so TF32 is switched off
+The parity contract is float32 on every device (bf16 only where a caller
+asks for ``precision="bf16"`` / ``mxu_dtype``), so TF32 is switched off
 here, once, at import.
 """
 

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of this package.
 
-The sources in ``csrc/`` have a plain C interface. They are compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library under
+The sources in ``csrc/`` have a plain C interface. Each is compiled with
+``nvcc`` for Hopper (``sm_90a``), all at once in parallel processes, and
+the objects are linked into one shared library under
 ``build/lora_phy_tpu_torch/`` beside the package, at first use and again
 whenever a source is newer than the library, and loaded with ``ctypes``.
 Nothing is compiled or loaded at import.
@@ -18,11 +19,11 @@ import subprocess
 import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "fused_demod.cu",)
+SOURCES = (_PKG / "csrc" / "fused_demod.cu", _PKG / "csrc" / "bf16_decide.cu")
 BUILD_DIR = _PKG.parent / "build" / "lora_phy_tpu_torch"
 LIBRARY = BUILD_DIR / "liblora_phy_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -43,25 +44,37 @@ def find_nvcc() -> str:
 
 
 def compile_library(sources, library: pathlib.Path, verbose: bool = False) -> pathlib.Path:
-    """Compile ``sources`` with nvcc and ``NVCC_FLAGS`` into ``library``.
-    Raises ``RuntimeError`` with nvcc's output when it fails."""
+    """Compile each of ``sources`` with nvcc and ``NVCC_FLAGS`` (one process
+    per source, all started together) and link the objects into
+    ``library``. Raises ``RuntimeError`` with nvcc's output when it fails."""
     nvcc = find_nvcc()
     library.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent processes never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=library.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, library)
+    with tempfile.TemporaryDirectory(dir=library.parent) as work:
+        jobs = []
+        for i, src in enumerate(map(pathlib.Path, sources)):
+            obj = pathlib.Path(work) / f"{i}_{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        outputs = [(cmd, obj, proc.communicate()[0], proc.returncode)
+                   for cmd, obj, proc in jobs]
+        for cmd, _, text, rc in outputs:
+            if verbose:
+                print(text, end="")
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
+        # link to a private name, then rename: concurrent processes never
+        # load a half-written library
+        tmp = pathlib.Path(work) / library.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _, _ in outputs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, library)
     return library
 
 
@@ -75,13 +88,18 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of a library built from ``SOURCES``."""
-    ptr = ctypes.c_void_p
-    lib.lora_fused_demod.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                     ctypes.c_longlong, ctypes.c_int, ptr]
-    lib.lora_fused_demod.restype = ctypes.c_int
-    lib.lora_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.lora_cuda_error_string.restype = ctypes.c_char_p
+    """Declare the C entry points of a library built from ``SOURCES`` (or
+    from a subset of them: an entry point the library lacks is skipped)."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    signatures = {
+        "lora_fused_demod": ([ptr] * 8 + [i64, i32, ptr], i32),
+        "lora_bf16_decide": ([ptr] * 4 + [i64, i64, i32] + [ptr] * 9, i32),
+        "lora_cuda_error_string": ([i32], ctypes.c_char_p),
+    }
+    for name, (argtypes, restype) in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 

@@ -119,15 +119,13 @@ def demodulate(samples: torch.Tensor, params: LoraParams,
 
 
 def _check_backend(backend: str) -> None:
-    """The JAX twin's ``backend=`` picks the FFT of its complex detector.
-    The port's complex demodulators are wrappers over the planar pipeline,
-    which computes the same DFT as real matmuls, so only the names of the
-    default FFT (``xla``, ``auto``) are accepted; :func:`..ops.fft.fft`
-    itself also takes ``dft``."""
-    if backend not in ("xla", "auto"):
-        raise ValueError(
-            f"backend {backend!r}: the complex demodulators run the planar "
-            "DFT; only 'xla' and 'auto' are accepted")
+    """The JAX twin's ``backend=`` picks the FFT of its complex detector:
+    ``xla`` (XLA's FFT), ``dft`` (dense DFT matmuls, the four-step above
+    N = 128) or ``auto``. The port's complex demodulators are wrappers over
+    the planar pipeline, whose DFT is the ``dft`` formulation itself, so
+    every name computes that one pipeline; an unknown name raises."""
+    if backend not in ("xla", "dft", "auto"):
+        raise ValueError(f"unknown backend {backend!r} (xla, dft or auto)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,176 @@
+"""bf16 decision stage: optional CFO derotation, the N-point DFT with bf16
+operands and float32 sums, |.|² and the first-max argmax over the
+natural bins, for N = 4..4096 (SF2-12) — the ``precision="bf16"``
+decisions of :func:`.planar.demodulate_planar` and
+``argmax_bins_planar(mxu_dtype=torch.bfloat16)``.
+
+It ports no Pallas kernel: in JAX this is jnp code that XLA fuses
+(``lora_phy_tpu/ops/planar.py``: ``_mm``, ``_dft_mag2_scrambled``,
+``argmax_bins_planar``, and their use in ``demodulate_planar`` after
+``_rotated_windows_planar``). On a CUDA tensor :func:`bf16_decide_rows`
+launches the hand-written CUDA C++ kernel ``csrc/bf16_decide.cu`` (bf16
+tensor cores, built for sm_90a at first use, see :mod:`.._build`), which
+keeps the derotated planes and the spectrum out of device memory; on a
+CPU tensor it runs the plain PyTorch version
+:func:`bf16_decide_rows_reference`. There is no other route: a CUDA call
+either launches the kernel or raises.
+
+Kernel and plain version round the same values to bf16 (the derotation
+op by op, the tables from the same float32 numpy builders) and multiply
+exactly; only the order of the float32 sums differs (the tensor cores'
+accumulation is not IEEE-sequential), so their bins agree except at
+near-ties (:func:`near_tie`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import planar
+
+# Launches of the CUDA kernel in this process: one per call of
+# bf16_decide_rows on CUDA tensors, so a run can show that its path went
+# through the kernel.
+LAUNCHES = 0
+
+# N the kernel takes: every power of two of LoraParams' SF2-12
+KERNEL_N = tuple(1 << sf for sf in range(2, 13))
+
+
+def near_tie(n: int) -> float:
+    """Relative gap between a row's two largest |.|² below which kernel and
+    plain version may pick different bins, and the relative difference
+    their peaks may show. At N <= 128 only the order of float32 sums of up
+    to 2N exact products differs: 1e-5. At N > 128 a sum-order difference
+    in stage 1 can move one bf16 rounding of a stage-2 operand b_i by one
+    bf16 step (at most 2^-7 |b_i|), which moves |y|² by at most
+    2 * 2^-7 |b_i| / |y| <= 2^-6 of the peak (|y_peak| >= max |b_i|)."""
+    return 1e-5 if n <= 128 else 2.0 ** -6
+
+
+def _derotate(yr: torch.Tensor, yi: torch.Tensor, n: int, cr, si, rows_per_rot: int):
+    """``fr = yr*cr - yi*si``, ``fi = yr*si + yi*cr`` with row r rotated by
+    rotation ``r // rows_per_rot`` (each op rounded on its own, as
+    :func:`.planar._rotated_windows_planar`)."""
+    if cr is None:
+        return yr, yi
+    b = cr.shape[0]
+    y3r, y3i = yr.reshape(b, rows_per_rot, n), yi.reshape(b, rows_per_rot, n)
+    c, s = cr[:, None, :], si[:, None, :]
+    fr = y3r * c - y3i * s
+    fi = y3r * s + y3i * c
+    return fr.reshape(-1, n), fi.reshape(-1, n)
+
+
+def bf16_decide_rows_reference(yr: torch.Tensor, yi: torch.Tensor, n: int,
+                               cr: torch.Tensor | None = None,
+                               si: torch.Tensor | None = None,
+                               rows_per_rot: int = 1, with_peak: bool = False):
+    """Plain PyTorch version of the kernel: the derotation, then exactly
+    ``argmax_bins_planar(fr, fi, n, mxu_dtype=torch.bfloat16)`` in torch
+    ops (int32 bins, and the float32 peak |.|² with ``with_peak``)."""
+    fr, fi = _derotate(yr, yi, n, cr, si, rows_per_rot)
+    return planar._argmax_bins_ops(fr, fi, n, torch.bfloat16, with_peak)
+
+
+def _pair_tables(m: np.ndarray, k: int, kp: int, np_: int):
+    """``(Wr.T, Wi.T)`` of a combined [2k, 2k] matrix ``[[Wr, Wi], [-Wi, Wr]]``,
+    zero-padded to [np_, kp] float32 ([bin][k], the kernel's layout)."""
+    wr, wi = m[:k, :k], m[:k, k:]
+    if not (np.array_equal(m[k:, :k], -wi) and np.array_equal(m[k:, k:], wr)):
+        raise ValueError("the combined DFT matrix is not [[Wr, Wi], [-Wi, Wr]]")
+    out = []
+    for w in (wr, wi):
+        t = np.zeros((np_, kp), np.float32)
+        t[:k, :k] = w.T
+        out.append(t)
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_tables(n: int, device: torch.device):
+    """The kernel's constants on ``device``: bf16 DFT tables rounded by torch
+    from the port's own float32 numpy builders (the same bits the plain
+    version's ``_mm`` rounds to), and for N > 128 the stage-2 tables and the
+    float32 [n1, n2] twiddles. ``(wa_r, wa_i, wb_r, wb_i, twr, twi)``, None
+    where the N <= 128 kernel takes nothing."""
+    def bf16(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).to(device)
+
+    if n <= 128:
+        wa = _pair_tables(planar._combined_dft_mat(n), n, max(n, 16), max(n, 8))
+        return bf16(wa[0]), bf16(wa[1]), None, None, None, None
+    m2, m1r, twr, twi, n1, n2 = planar._scrambled_mats(n)
+    wa = _pair_tables(m2, n2, n2, n2)
+    wb = _pair_tables(m1r, n1, n1, n1)
+    tw = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in (twr, twi)]
+    return bf16(wa[0]), bf16(wa[1]), bf16(wb[0]), bf16(wb[1]), tw[0], tw[1]
+
+
+def _check(yr, yi, n, cr, si, rows_per_rot):
+    if n not in KERNEL_N:
+        raise ValueError(f"N must be a power of two in {KERNEL_N[0]}..{KERNEL_N[-1]}, got {n}")
+    if yr.dim() != 2 or tuple(yr.shape) != tuple(yi.shape) or yr.shape[1] != n:
+        raise ValueError(f"yr / yi must be [rows, {n}], got {tuple(yr.shape)} / "
+                         f"{tuple(yi.shape)}")
+    if (cr is None) != (si is None):
+        raise ValueError("give both rotation planes cr and si, or neither")
+    if rows_per_rot < 1:
+        raise ValueError(f"rows_per_rot must be >= 1, got {rows_per_rot}")
+    named = {"yr": yr, "yi": yi}
+    if cr is not None:
+        b, rem = divmod(yr.shape[0], rows_per_rot)
+        if rem or tuple(cr.shape) != (b, n) or tuple(si.shape) != (b, n):
+            raise ValueError(f"cr / si must be [rows / rows_per_rot, {n}] = [{b}, {n}] "
+                             f"(rows {yr.shape[0]}, rows_per_rot {rows_per_rot}), got "
+                             f"{tuple(cr.shape)} / {tuple(si.shape)}")
+        named.update(cr=cr, si=si)
+    for name, t in named.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != yr.device:
+            raise ValueError(f"{name} is on {t.device}, yr on {yr.device}")
+        if t.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def bf16_decide_rows(yr: torch.Tensor, yi: torch.Tensor, n: int,
+                     cr: torch.Tensor | None = None, si: torch.Tensor | None = None,
+                     rows_per_rot: int = 1, with_peak: bool = False):
+    """bf16 decisions over [rows, N] float32 pre-rotation windows ``yr``,
+    ``yi``, derotated first by the [rows / rows_per_rot, N] planes ``cr``,
+    ``si`` when given (row r by plane ``r // rows_per_rot``). Returns [rows]
+    int32 bins, and with ``with_peak`` also the [rows] float32 peak |.|²."""
+    global LAUNCHES
+    _check(yr, yi, n, cr, si, rows_per_rot)
+    if yr.device.type == "cpu":
+        return bf16_decide_rows_reference(yr, yi, n, cr, si, rows_per_rot, with_peak)
+    if yr.device.type != "cuda":
+        raise ValueError(f"no bf16 decision kernel for device {yr.device}")
+
+    from .._build import load_library
+
+    lib = load_library()
+    wa_r, wa_i, wb_r, wb_i, twr, twi = _kernel_tables(n, yr.device)
+    rows = yr.shape[0]
+    out = torch.empty(rows, dtype=torch.int32, device=yr.device)
+    peak = torch.empty(rows, dtype=torch.float32, device=yr.device) if with_peak else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(yr.device):
+        stream = torch.cuda.current_stream(yr.device).cuda_stream
+        rc = lib.lora_bf16_decide(
+            ptr(yr), ptr(yi), ptr(cr), ptr(si), ctypes.c_longlong(rows),
+            ctypes.c_longlong(rows_per_rot), ctypes.c_int(n), ptr(wa_r), ptr(wa_i),
+            ptr(wb_r), ptr(wb_i), ptr(twr), ptr(twi), ptr(out), ptr(peak), stream)
+    if rc != 0:
+        msg = lib.lora_cuda_error_string(rc).decode()
+        raise RuntimeError(f"bf16_decide kernel launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES += 1
+    return (out, peak) if with_peak else out

@@ -10,9 +10,15 @@ reference, src/phy/LoRaDemod.cpp:49-195), computed in float32 on
 ``demodulate_planar(fused=True)`` sends the per-symbol stage at N <= 128
 through the hand-written CUDA kernel of :mod:`.fused_demod`.
 
-Not ported: the JAX module's bf16 decision path (``_decision_bins_bf16``,
-chosen there on any non-CPU backend) — the port stays float32 on every
-device — and the ``mxu_dtype`` knobs that feed it.
+Reduced precision is opt-in, as in the JAX module: ``mxu_dtype=torch.bfloat16``
+on the DFT functions and ``precision="bf16"`` on the demodulators round
+the DFT operands to bf16 and sum their products in float32 (:func:`_mm`).
+On a CUDA tensor the bf16 decisions (``demodulate_planar`` and
+``argmax_bins_planar``) run through the hand-written kernel of
+:mod:`.bf16_decide`; everything else stays torch ops. The JAX module's
+``_decision_bins_bf16``, which it substitutes for ``precision="f32"`` on
+any non-CPU backend, is not ported: the port honours float32 on every
+device.
 """
 
 from __future__ import annotations
@@ -58,6 +64,18 @@ def as_planes(xr, xi, device=None):
     dev = device_of(xr, device)
     return (torch.as_tensor(xr, dtype=torch.float32, device=dev),
             torch.as_tensor(xi, dtype=torch.float32, device=dev))
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, mxu_dtype=None) -> torch.Tensor:
+    """``a @ b`` in float32; with ``mxu_dtype`` (``torch.bfloat16``) both
+    operands are rounded to it first (round to nearest even) and the
+    products summed in float32 — JAX's ``preferred_element_type=f32``
+    dot. Products of two bf16 values are exact in float32, and TF32 is
+    off (package import), so only the order of the sums differs."""
+    if mxu_dtype is not None:
+        a = a.to(mxu_dtype).to(torch.float32)
+        b = b.to(mxu_dtype).to(torch.float32)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------
@@ -112,34 +130,36 @@ def _scrambled_mats(n: int):
 # DFT, |DFT|^2, argmax, detection
 # ---------------------------------------------------------------------------
 
-def dft_planar(xr: torch.Tensor, xi: torch.Tensor, n: int):
+def dft_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, mxu_dtype=None):
     """Planar DFT over the last axis: four real matmuls (N <= 128) or the
-    four-step factorisation (N up to 4096)."""
+    four-step factorisation (N up to 4096). ``mxu_dtype=torch.bfloat16``
+    rounds every matmul operand to bf16 (f32 sums, :func:`_mm`)."""
     if n <= 128:
         wr, wi = device_table(_small_dft_tables, n, device=xr.device)
         # one [rows, n] GEMM: a strided batch (the estimator's osr-phase
         # view) would otherwise run as batched GEMVs on the GPU
         shape = xr.shape
         xr, xi = xr.reshape(-1, n), xi.reshape(-1, n)
-        return ((xr @ wr - xi @ wi).reshape(shape),
-                (xr @ wi + xi @ wr).reshape(shape))
+        return ((_mm(xr, wr, mxu_dtype) - _mm(xi, wi, mxu_dtype)).reshape(shape),
+                (_mm(xr, wi, mxu_dtype) + _mm(xi, wr, mxu_dtype)).reshape(shape))
     w1r, w1i, w2r, w2i, twr, twi = device_table(_fourstep_planar_mats, n,
                                                 device=xr.device)
     n1, n2 = _dft_mats(n)[3:]
     lead = xr.shape[:-1]
     xr_m = xr.reshape(*lead, n2, n1)                    # [.., i2, i1]
     xi_m = xi.reshape(*lead, n2, n1)
-    ar = w2r @ xr_m - w2i @ xi_m                        # inner DFT: [.., k2, i1]
-    ai = w2r @ xi_m + w2i @ xr_m
+    ar = _mm(w2r, xr_m, mxu_dtype) - _mm(w2i, xi_m, mxu_dtype)  # inner DFT: [.., k2, i1]
+    ai = _mm(w2r, xi_m, mxu_dtype) + _mm(w2i, xr_m, mxu_dtype)
     br = ar * twr - ai * twi                            # twiddle
     bi = ar * twi + ai * twr
-    cr = br @ w1r.T - bi @ w1i.T                        # outer DFT: [.., k2, k1]
-    ci = br @ w1i.T + bi @ w1r.T
+    cr = _mm(br, w1r.T, mxu_dtype) - _mm(bi, w1i.T, mxu_dtype)  # outer DFT: [.., k2, k1]
+    ci = _mm(br, w1i.T, mxu_dtype) + _mm(bi, w1r.T, mxu_dtype)
     return (cr.swapaxes(-1, -2).reshape(*lead, n),
             ci.swapaxes(-1, -2).reshape(*lead, n))
 
 
-def _dft_mag2_scrambled(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+def _dft_mag2_scrambled(xr: torch.Tensor, xi: torch.Tensor, n: int,
+                        mxu_dtype=None) -> torch.Tensor:
     """|DFT|² in the four-step's native [.., k2, k1] layout (bin
     ``k = k1*n2 + k2``), via two combined matmuls and no output reorder."""
     m2, m1r, twr, twi, n1, n2 = device_table(_scrambled_mats, n, device=xr.device)
@@ -148,39 +168,58 @@ def _dft_mag2_scrambled(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Ten
         [xr.reshape(*lead, n2, n1).swapaxes(-1, -2),
          xi.reshape(*lead, n2, n1).swapaxes(-1, -2)], dim=-1
     )                                                   # [.., n1, 2n2]
-    a = xst @ m2
+    a = _mm(xst, m2, mxu_dtype)
     ar, ai = a[..., :n2], a[..., n2:]                   # [.., n1, n2]
     bs = torch.cat(
         [(ar * twr - ai * twi).swapaxes(-1, -2),
          (ar * twi + ai * twr).swapaxes(-1, -2)], dim=-1
     )                                                   # [.., n2, 2n1]
-    c = bs @ m1r                                        # [cr | ci]
+    c = _mm(bs, m1r, mxu_dtype)                         # [cr | ci]
     return c[..., :n1] * c[..., :n1] + c[..., n1:] * c[..., n1:]
 
 
-def dft_mag2_planar(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+def dft_mag2_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
+                    mxu_dtype=None) -> torch.Tensor:
     """|DFT|² over the last axis in natural bin order."""
     if n <= 128:
         m = device_table(_combined_dft_mat, n, device=xr.device)
-        y = torch.cat([xr, xi], dim=-1) @ m
+        y = _mm(torch.cat([xr, xi], dim=-1), m, mxu_dtype)
         return y[..., :n] * y[..., :n] + y[..., n:] * y[..., n:]
-    m = _dft_mag2_scrambled(xr, xi, n)
+    m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
     lead = m.shape[:-2]
     return m.swapaxes(-1, -2).reshape(*lead, n)
 
 
 def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
-                       with_peak: bool = False):
+                       mxu_dtype=None, with_peak: bool = False):
     """DFT + |.|² + first-max argmax only (int32 bins; ``with_peak`` also
     returns the peak |.|²). At N > 128 ties go to the lowest natural bin,
-    as the reference's first-max scan (tests/equal_power_bin_test.cpp)."""
+    as the reference's first-max scan (tests/equal_power_bin_test.cpp).
+
+    ``mxu_dtype=torch.bfloat16`` goes through :mod:`.bf16_decide`: the
+    kernel on a CUDA tensor, its plain version (torch ops) on the CPU."""
+    if mxu_dtype == torch.bfloat16:
+        from .bf16_decide import bf16_decide_rows
+
+        lead = xr.shape[:-1]
+        out = bf16_decide_rows(xr.reshape(-1, n).contiguous(),
+                               xi.reshape(-1, n).contiguous(), n, with_peak=with_peak)
+        if with_peak:
+            return out[0].reshape(lead), out[1].reshape(lead)
+        return out.reshape(lead)
+    return _argmax_bins_ops(xr, xi, n, mxu_dtype, with_peak)
+
+
+def _argmax_bins_ops(xr: torch.Tensor, xi: torch.Tensor, n: int, mxu_dtype=None,
+                     with_peak: bool = False):
+    """:func:`argmax_bins_planar` in torch ops, on any device."""
     if n <= 128:
-        mag2 = dft_mag2_planar(xr, xi, n)
+        mag2 = dft_mag2_planar(xr, xi, n, mxu_dtype)
         bins = torch.argmax(mag2, dim=-1).to(torch.int32)
         if with_peak:
             return bins, mag2.amax(dim=-1)
         return bins
-    m = _dft_mag2_scrambled(xr, xi, n)
+    m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
     lead = m.shape[:-2]
     n2, n1 = m.shape[-2], m.shape[-1]
     bins, peak = _argmax_natural(m.reshape(*lead, n2 * n1), n1, n2)
@@ -201,10 +240,11 @@ def _argmax_natural(flat: torch.Tensor, n1: int, n2: int):
     return bins.to(torch.int32), peak
 
 
-def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int) -> PlanarDetection:
+def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
+                  mxu_dtype=None) -> PlanarDetection:
     """Planar twin of ops.detect.detect (same argmax/tie-break/fIndex
     semantics, LoRaDetector.hpp:39-74)."""
-    sr, si = dft_planar(xr, xi, n)
+    sr, si = dft_planar(xr, xi, n, mxu_dtype)
     mag2 = sr * sr + si * si
     index = torch.argmax(mag2, dim=-1)
     max_value = mag2.amax(dim=-1)
@@ -433,8 +473,15 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     :func:`.fused_demod.fused_demod` — the CUDA kernel on a CUDA tensor,
     its plain twin on a CPU tensor. ``assume_normalized=True`` skips the
     [-1, 1] rescale scan. ``known_offsets=(cfo, time_offset)`` bypasses
-    the 2-symbol estimator. Only ``precision='f32'`` is ported."""
-    _check_precision(precision)
+    the 2-symbol estimator. ``precision='bf16'`` rounds the DFT operands
+    to bf16 (f32 sums); the derotation and the decision go through
+    :mod:`.bf16_decide` (on a CUDA tensor one kernel, which never writes
+    the derotated planes out). The front (scan, estimate, windows) stays
+    float32, so ``cfo`` and ``time_offset`` are float32's."""
+    mxu_dtype = _mxu_dtype(precision)
+    if fused and mxu_dtype is not None:
+        raise ValueError("the fused kernel runs f32 only; "
+                         "precision='bf16' requires fused=False")
     yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
         xr, xi, params, assume_normalized, known_offsets
     )
@@ -444,6 +491,17 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
         # the JAX path's ``yr * scale``, without materialising it
         from .fused_demod import fused_demod
         syms = fused_demod(yr, yi, rate, t_off, params, scale)
+    elif mxu_dtype is not None:
+        from .bf16_decide import bf16_decide_rows
+
+        n = params.n
+        cr, si = _rotation_planes(rate, scale, params)
+        rows = yr.shape[:-1]
+        syms = bf16_decide_rows(yr.reshape(-1, n).contiguous(),
+                                yi.reshape(-1, n).contiguous(), n,
+                                cr.reshape(-1, n).contiguous(),
+                                si.reshape(-1, n).contiguous(),
+                                rows_per_rot=rows[-1]).reshape(rows)
     else:
         fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
         syms = argmax_bins_planar(fr, fi, params.n)
@@ -452,13 +510,13 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     return PlanarDemodResult(syms[..., 2:], sync, cfo, time_offset)
 
 
-def _check_precision(precision: str) -> None:
+def _mxu_dtype(precision: str):
+    """The matmul operand dtype of a demodulator's ``precision``."""
+    if precision == "f32":
+        return None
     if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported (ROADMAP.md Queue 1: the "
-            "precision='bf16' path); the port runs float32")
-    if precision != "f32":
-        raise ValueError(f"unknown precision {precision!r}")
+        return torch.bfloat16
+    raise ValueError(f"unknown precision {precision!r} (f32 or bf16)")
 
 
 def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
@@ -474,13 +532,14 @@ def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
     ``osr-1`` when receiving the reference's default TX fold with an
     injected time offset of 0 (see modem._shifted_symbol_gather). The
     only host read is :func:`_shifted_symbol_gather`'s ``t_off == 0``
-    branch. Only ``precision='f32'`` is ported."""
-    _check_precision(precision)
+    branch. ``precision='bf16'`` rounds the DFT operands to bf16 (torch
+    ops on every device: the spectra are floats, not decisions)."""
+    mxu_dtype = _mxu_dtype(precision)
     yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
         xr, xi, params, assume_normalized, known_offsets, dec_phase
     )
     fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
-    mag2 = dft_mag2_planar(fr, fi, params.n)
+    mag2 = dft_mag2_planar(fr, fi, params.n, mxu_dtype)
     syms = torch.argmax(mag2[..., :2, :], dim=-1).to(torch.int32)
     sync = _sync_from_symbols(syms[..., 0], syms[..., 1], params.sf)
     return mag2[..., 2:, :], sync, cfo, time_offset
@@ -549,6 +608,17 @@ def _rotated_windows_planar(yr: torch.Tensor, yi: torch.Tensor,
     ``rate*(s*N + t_off/osr)`` leaves every magnitude unchanged, so
     ``t_off`` is accepted for signature stability only (see the JAX twin)."""
     del t_off
+    cr, si_ = _rotation_planes(rate, scale, params)
+    cr = cr[..., None, :]
+    si_ = si_[..., None, :]
+    fr = yr * cr - yi * si_
+    fi = yr * si_ + yi * cr
+    return fr, fi
+
+
+def _rotation_planes(rate: torch.Tensor, scale, params: LoraParams):
+    """The [..., N] (cos, sin) rotation planes of one frame, times the
+    amplitude ``scale`` ([...] or None) and the window."""
     cr, si_ = _derotation_vector(rate, params.n)              # [..., N]
     if scale is not None:
         cr = cr * scale[..., None]
@@ -556,11 +626,7 @@ def _rotated_windows_planar(yr: torch.Tensor, yi: torch.Tensor,
     window = _window_tensor(params, rate.device)
     if window is not None:
         cr, si_ = cr * window, si_ * window
-    cr = cr[..., None, :]
-    si_ = si_[..., None, :]
-    fr = yr * cr - yi * si_
-    fi = yr * si_ + yi * cr
-    return fr, fi
+    return cr, si_
 
 
 # ---------------------------------------------------------------------------

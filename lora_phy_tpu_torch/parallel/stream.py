@@ -157,7 +157,7 @@ def demodulate_stream(samples, params: LoraParams, mesh: Mesh,
     """Complex64 twin of :func:`demodulate_stream_planar` (``samples``
     ``[channels, T]``): a wrapper over the planar body, as every complex
     demodulator of the port. ``backend`` is checked as in
-    :func:`..models.modem.demodulate` (``dft`` is refused)."""
+    :func:`..models.modem.demodulate` (every name runs the planar DFT)."""
     from ..models.modem import _check_backend
 
     _check_backend(backend)

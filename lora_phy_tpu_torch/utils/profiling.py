@@ -29,8 +29,10 @@ import tempfile
 from .params import LoraParams
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W power limit):
-# float32 outside the tensor cores, and HBM3 bandwidth
+# float32 outside the tensor cores, dense bf16 on the tensor cores, and
+# HBM3 bandwidth
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 H100_HBM_BPS = 3.35e12
 
 

@@ -1,0 +1,343 @@
+"""Port parity of the reduced-precision decision path: ``mxu_dtype=`` on
+the DFT functions and ``precision="bf16"`` on the demodulators of
+lora_phy_tpu_torch.ops.planar, and the plain version of the bf16
+decision kernel (lora_phy_tpu_torch.ops.bf16_decide), against
+lora_phy_tpu.ops.planar with ``mxu_dtype=jnp.bfloat16`` on the CPU.
+
+Both packages round the same float32 operands to bf16 (round to nearest
+even) and multiply exactly; only the order of the float32 sums differs.
+Decisions are bit-equal. Floats are held to:
+
+* 1e-6 of the spectrum's peak for N <= 1024 (float32 sums of up to 2N
+  exact products in another order);
+* 2e-4 of the peak above (the four-step's stage-1 sums feed a second bf16
+  rounding: a sum-order difference of one float32 ulp can move a stage-2
+  operand by one bf16 step, 2^-8 relative; measured 1.4e-5 at N = 4096).
+
+The front of the demodulators stays float32, so cfo / time_offset carry
+the float32 path's tolerances. The CUDA kernel itself is checked against
+its plain version on the card (``gpu``-marked test; ``chip_smoke.py``
+phase 19).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_util import GOLDEN, cuda_device, golden_params, nn, tparams, tt
+from lora_phy_tpu.models import modem as jmodem
+from lora_phy_tpu.ops import planar as jplanar
+from lora_phy_tpu.utils.params import LoraParams, Window
+from lora_phy_tpu_torch.models import modem as tmodem
+from lora_phy_tpu_torch.ops import bf16_decide as tbf16
+from lora_phy_tpu_torch.ops import planar as tplanar
+
+BF16 = torch.bfloat16
+CFO_ATOL = 1e-6
+TO_ATOL = 2e-3
+SIZES = [4, 16, 64, 128, 256, 512, 1024, 2048, 4096]
+
+
+def spectrum_rtol(n: int) -> float:
+    """Float tolerance relative to the peak (module docstring)."""
+    return 1e-6 if n <= 1024 else 2e-4
+
+
+def _rows(n, b, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, n).astype(np.float32), rng.randn(b, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_mxu_dtype_knobs_vs_jax(n):
+    """dft_planar, dft_mag2_planar, argmax_bins_planar (with and without
+    the peak) and detect_planar at mxu_dtype=bf16 against JAX's
+    mxu_dtype=jnp.bfloat16: decisions equal, floats within spectrum_rtol
+    of the peak (amplitudes of the peak amplitude)."""
+    xr, xi = _rows(n, 6, n)
+    jb = jnp.bfloat16
+    rmag = np.asarray(jplanar.dft_mag2_planar(xr, xi, n, mxu_dtype=jb))
+    mag = nn(tplanar.dft_mag2_planar(tt(xr), tt(xi), n, mxu_dtype=BF16))
+    peak = rmag.max()
+    tol = spectrum_rtol(n)
+    assert np.abs(mag - rmag).max() <= tol * peak
+
+    rr, ri = jplanar.dft_planar(xr, xi, n, mxu_dtype=jb)
+    gr, gi = tplanar.dft_planar(tt(xr), tt(xi), n, mxu_dtype=BF16)
+    amp = np.sqrt(peak)
+    assert np.abs(nn(gr) - np.asarray(rr)).max() <= tol * amp
+    assert np.abs(nn(gi) - np.asarray(ri)).max() <= tol * amp
+
+    ref_bins = np.asarray(jplanar.argmax_bins_planar(xr, xi, n, mxu_dtype=jb))
+    got_bins = tplanar.argmax_bins_planar(tt(xr), tt(xi), n, mxu_dtype=BF16)
+    assert got_bins.dtype == torch.int32
+    np.testing.assert_array_equal(nn(got_bins), ref_bins)
+    rb, rp = jplanar.argmax_bins_planar(xr, xi, n, mxu_dtype=jb, with_peak=True)
+    gb, gp = tplanar.argmax_bins_planar(tt(xr), tt(xi), n, mxu_dtype=BF16, with_peak=True)
+    np.testing.assert_array_equal(nn(gb), np.asarray(rb))
+    assert np.abs(nn(gp) - np.asarray(rp)).max() <= tol * peak
+    np.testing.assert_array_equal(ref_bins, rmag.argmax(-1))
+
+    rd = jplanar.detect_planar(xr, xi, n, mxu_dtype=jb)
+    gd = tplanar.detect_planar(tt(xr), tt(xi), n, mxu_dtype=BF16)
+    np.testing.assert_array_equal(nn(gd.index), np.asarray(rd.index))
+    for f in ("peak_re", "peak_im"):
+        assert np.abs(nn(getattr(gd, f)) - np.asarray(getattr(rd, f))).max() <= tol * amp, f
+    # powers in dB: a relative error e of |.|^2 moves 10*log10 by 4.35*e
+    for f in ("power", "power_avg"):
+        np.testing.assert_allclose(nn(getattr(gd, f)), np.asarray(getattr(rd, f)),
+                                   rtol=0, atol=5.0 * tol * n, err_msg=f)
+
+
+def _noisy(p, snr_db, batch, payload_len, seed):
+    """Dechirped frames of random payloads, plus numpy AWGN at ``snr_db``
+    per sample (None: clean)."""
+    rng = np.random.RandomState(seed)
+    payloads = rng.randint(0, 256, (batch, payload_len)).astype(np.uint8)
+    dech = np.asarray(jmodem.dechirp(jmodem.modulate(jmodem.encode(payloads), p), p))
+    if snr_db is not None:
+        sigma = np.sqrt(0.5 * 10.0 ** (-snr_db / 10.0))
+        dech = dech + sigma * (rng.randn(*dech.shape) + 1j * rng.randn(*dech.shape))
+    xr, xi = jplanar.split_complex(dech.astype(np.complex64))
+    return payloads, xr, xi
+
+
+DEMOD_CASES = [(7, None), (7, -3.0), (12, None), (12, -15.0)]
+
+
+@pytest.mark.parametrize("sf,snr_db", DEMOD_CASES)
+def test_demodulate_planar_bf16_vs_jax(sf, snr_db):
+    """precision='bf16' end to end at SF7 and SF12 (osr 1), clean loopback
+    and under numpy AWGN: symbols and sync equal to JAX's, the payloads
+    decoded; cfo / time_offset within the float32 tolerances, and equal
+    to the port's own float32 run (the front stays float32)."""
+    p = LoraParams(sf=sf)
+    tp = tparams(p)
+    payloads, xr, xi = _noisy(p, snr_db, batch=3, payload_len=6, seed=sf)
+    ref = jplanar.demodulate_planar(xr, xi, p, precision="bf16")
+    got = tplanar.demodulate_planar(tt(xr), tt(xi), tp, precision="bf16")
+    np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
+    np.testing.assert_array_equal(nn(got.sync_word), nn(ref.sync_word))
+    np.testing.assert_array_equal(nn(tmodem.decode(got.symbols)), payloads)
+    np.testing.assert_allclose(nn(got.cfo), nn(ref.cfo), rtol=0, atol=CFO_ATOL)
+    np.testing.assert_allclose(nn(got.time_offset), nn(ref.time_offset), rtol=0, atol=TO_ATOL)
+    f32 = tplanar.demodulate_planar(tt(xr), tt(xi), tp)
+    torch.testing.assert_close(got.cfo, f32.cfo, rtol=0, atol=0)
+    torch.testing.assert_close(got.time_offset, f32.time_offset, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sf,snr_db", DEMOD_CASES)
+def test_demodulate_spectrum_planar_bf16_vs_jax(sf, snr_db):
+    """The spectrum demod at precision='bf16': spectra within
+    spectrum_rtol of the peak, their argmax and the sync word equal."""
+    p = LoraParams(sf=sf)
+    tp = tparams(p)
+    _, xr, xi = _noisy(p, snr_db, batch=2, payload_len=4, seed=sf + 1)
+    ref = jplanar.demodulate_spectrum_planar(xr, xi, p, precision="bf16")
+    got = tplanar.demodulate_spectrum_planar(tt(xr), tt(xi), tp, precision="bf16")
+    mag, rmag = nn(got[0]), nn(ref[0])
+    assert mag.shape == rmag.shape
+    np.testing.assert_array_equal(mag.argmax(-1), rmag.argmax(-1))
+    np.testing.assert_array_equal(nn(got[1]), nn(ref[1]))
+    assert np.abs(mag - rmag).max() <= spectrum_rtol(p.n) * rmag.max()
+    np.testing.assert_allclose(nn(got[2]), nn(ref[2]), rtol=0, atol=CFO_ATOL)
+    np.testing.assert_allclose(nn(got[3]), nn(ref[3]), rtol=0, atol=TO_ATOL)
+
+
+@pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
+def test_golden_demodulate_bf16(path):
+    """Every golden cell (SF7-12, BW, osr, window) through
+    demodulate_planar(precision='bf16'): the golden decisions, sync word
+    and bytes (JAX's bf16 path gives them too)."""
+    g = np.load(path)
+    p = golden_params(path.stem)
+    xr, xi = jplanar.split_complex(g["iq"])
+    tdr, tdi = tplanar.dechirp_planar(tt(xr), tt(xi), tparams(p))
+    res = tplanar.demodulate_planar(tdr, tdi, tparams(p), precision="bf16")
+    np.testing.assert_array_equal(nn(res.symbols), g["demod"].astype(np.int32))
+    assert int(res.sync_word) == int(g["sync"])
+    np.testing.assert_array_equal(nn(tmodem.decode(res.symbols)), g["decoded"])
+
+
+def _rotation_case(p, rows_per_rot, b, seed):
+    """Dechirped symbol windows [b * rows_per_rot, N] at per-sample SNR
+    0 dB with a per-frame CFO of up to half a bin, and the per-frame rate,
+    scale and rotation planes of both packages."""
+    n = p.n
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, n, (b, rows_per_rot))
+    cfo = rng.uniform(-0.5, 0.5, (b, 1, 1))
+    k = np.arange(n)
+    tone = np.exp(2j * np.pi * (bins[..., None] + cfo) * k / n)
+    noise = (rng.randn(b, rows_per_rot, n) + 1j * rng.randn(b, rows_per_rot, n)) * np.sqrt(0.5)
+    y = (2.0 * tone + noise).astype(np.complex64)
+    yr, yi = jplanar.split_complex(y)
+    rate = (-2 * np.pi * rng.uniform(-0.5, 0.5, b) / n).astype(np.float32)
+    scale = rng.uniform(0.3, 1.0, b).astype(np.float32)
+    return yr, yi, rate, scale
+
+
+@pytest.mark.parametrize("window", [Window.NONE, Window.HANN], ids=["none", "hann"])
+@pytest.mark.parametrize("sf", [2, 5, 7, 8, 10, 12])
+def test_bf16_decide_reference_vs_jax(sf, window):
+    """The kernel's plain version, with the rotation planes (scale and
+    window folded in) and without, against JAX's argmax_bins_planar at
+    mxu_dtype=bf16 after JAX's own derotation: equal bins, peaks within
+    spectrum_rtol; through demodulate_planar's rotation planes too."""
+    p = LoraParams(sf=sf, window=window)
+    tp = tparams(p)
+    n, s, b = p.n, 5, 3
+    yr, yi, rate, scale = _rotation_case(p, s, b, seed=sf)
+    t_off = np.zeros(b, np.int32)
+    fr, fi = jplanar._rotated_windows_planar(yr, yi, rate, t_off, scale, p)
+    ref, rpeak = jplanar.argmax_bins_planar(fr, fi, n, mxu_dtype=jnp.bfloat16,
+                                            with_peak=True)
+    cr, si = tplanar._rotation_planes(tt(rate), tt(scale), tp)
+    got, peak = tbf16.bf16_decide_rows(tt(yr).reshape(-1, n), tt(yi).reshape(-1, n), n,
+                                       cr, si, rows_per_rot=s, with_peak=True)
+    np.testing.assert_array_equal(nn(got), np.asarray(ref).reshape(-1))
+    rpeak = np.asarray(rpeak).reshape(-1)
+    assert np.abs(nn(peak) - rpeak).max() <= spectrum_rtol(n) * rpeak.max()
+
+    # without rotation: the rows as they are
+    ref = jplanar.argmax_bins_planar(yr, yi, n, mxu_dtype=jnp.bfloat16)
+    got = tbf16.bf16_decide_rows_reference(tt(yr).reshape(-1, n), tt(yi).reshape(-1, n), n)
+    np.testing.assert_array_equal(nn(got), np.asarray(ref).reshape(-1))
+
+
+@pytest.mark.parametrize("sf", [8, 9, 10, 11, 12])
+def test_bf16_tie_break_lowest_natural_bin(sf):
+    """At N > 128 the bf16 path keeps the reference's first-max tie-break
+    in natural bin order (tests/equal_power_bin_test.cpp:31-55):
+    tests/test_planar.py's crafted ties on the scrambled [k2, k1] layout
+    (natural bin 1 against bin n2, which comes first in that layout), and
+    a row whose bf16 spectrum ties exactly on every odd bin
+    (x = delta(0) - delta(N/2): |X_k|^2 = 4 for odd k), which must give
+    bin 1 through the plain version, as through JAX's."""
+    n = 1 << sf
+    m2, m1r, twr, twi, n1, n2 = tplanar._scrambled_mats(n)
+    flat = np.zeros((3, n), np.float32)
+    flat[:, 1] = 5.0       # scrambled-first, natural bin n2
+    flat[:, n1] = 5.0      # scrambled-later, natural bin 1
+    flat[0, 0] = 7.0
+    bins, peak = tplanar._argmax_natural(tt(flat), n1, n2)
+    np.testing.assert_array_equal(nn(bins), [0, 1, 1])
+    np.testing.assert_array_equal(nn(peak), [7.0, 5.0, 5.0])
+
+    xr = np.zeros((2, n), np.float32)
+    xr[:, 0], xr[:, n // 2] = 1.0, -1.0
+    xr[1] *= 3.0
+    xi = np.zeros_like(xr)
+    mag = nn(tplanar.dft_mag2_planar(tt(xr), tt(xi), n, mxu_dtype=BF16))
+    assert np.all(mag[:, 1::2] == mag[:, 1:2])          # an exact tie on the odd bins
+    ref = np.asarray(jplanar.argmax_bins_planar(xr, xi, n, mxu_dtype=jnp.bfloat16))
+    got = tbf16.bf16_decide_rows(tt(xr), tt(xi), n)
+    np.testing.assert_array_equal(nn(got), [1, 1])
+    np.testing.assert_array_equal(ref, [1, 1])
+
+
+def test_precision_refusals():
+    """fused=True with precision='bf16' is refused in both packages, as is
+    an unknown precision (JAX refuses it only with fused=True; the port
+    always)."""
+    p = LoraParams(sf=7)
+    tp = tparams(p)
+    _, xr, xi = _noisy(p, None, batch=1, payload_len=2, seed=0)
+    with pytest.raises(ValueError, match="f32"):
+        jplanar.demodulate_planar(xr, xi, p, fused=True, precision="bf16")
+    with pytest.raises(ValueError, match="f32"):
+        tplanar.demodulate_planar(tt(xr), tt(xi), tp, fused=True, precision="bf16")
+    with pytest.raises(ValueError):
+        jplanar.demodulate_planar(xr, xi, p, fused=True, precision="fp8")
+    for fused in (False, True):
+        with pytest.raises(ValueError, match="precision"):
+            tplanar.demodulate_planar(tt(xr), tt(xi), tp, fused=fused, precision="fp8")
+    with pytest.raises(ValueError, match="precision"):
+        tplanar.demodulate_spectrum_planar(tt(xr), tt(xi), tp, precision="fp8")
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """bf16_decide_rows checks N, shapes, dtypes and the rotation planes
+    before any route; on the CPU it runs the plain version and launches
+    nothing."""
+    n = 64
+    yr, yi = (tt(a) for a in _rows(n, 6, 1))
+    cr, si = torch.ones(3, n), torch.zeros(3, n)
+    with pytest.raises(ValueError, match="power of two"):
+        tbf16.bf16_decide_rows(yr[:, :48], yi[:, :48], 48)
+    with pytest.raises(ValueError, match="power of two"):
+        tbf16.bf16_decide_rows(torch.zeros(2, 8192), torch.zeros(2, 8192), 8192)
+    with pytest.raises(ValueError, match="rows"):
+        tbf16.bf16_decide_rows(yr.reshape(-1), yi.reshape(-1), n)
+    with pytest.raises(TypeError, match="float32"):
+        tbf16.bf16_decide_rows(yr.double(), yi.double(), n)
+    with pytest.raises(ValueError, match="both"):
+        tbf16.bf16_decide_rows(yr, yi, n, cr=cr)
+    with pytest.raises(ValueError, match="rows_per_rot"):
+        tbf16.bf16_decide_rows(yr, yi, n, cr, si, rows_per_rot=4)
+    launches = tbf16.LAUNCHES
+    got = tbf16.bf16_decide_rows(yr, yi, n, cr, si, rows_per_rot=2)
+    ref = tbf16.bf16_decide_rows_reference(yr, yi, n)      # cr = 1, si = 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert tbf16.LAUNCHES == launches
+
+
+def test_kernel_tables_are_the_plain_versions_bits():
+    """The kernel's bf16 tables are torch's rounding of the port's float32
+    builders, transposed and zero-padded (N < 16), so kernel and plain
+    version multiply the same bits; the twiddles are the float32 ones."""
+    for n in (4, 128):
+        wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
+        m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
+        assert wr.shape == (max(n, 8), max(n, 16)) and wr.dtype == BF16
+        torch.testing.assert_close(wr[:n, :n], m[:n, :n].T, rtol=0, atol=0)
+        torch.testing.assert_close(wi[:n, :n], m[:n, n:].T, rtol=0, atol=0)
+        assert not wr[n:].any() and not wr[:, n:].any()
+        assert wbr is None and twr is None
+    m2, m1r, ftwr, ftwi, n1, n2 = tplanar._scrambled_mats(4096)
+    wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(4096, torch.device("cpu"))
+    torch.testing.assert_close(wr, torch.from_numpy(m2[:n2, :n2].T.copy()).to(BF16),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(wbi, torch.from_numpy(m1r[:n1, n1:].T.copy()).to(BF16),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(nn(twi), ftwi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sf", list(range(2, 13)))
+def test_cuda_kernel_matches_plain_version(sf):
+    """The CUDA kernel against its plain version on the card, with and
+    without rotation (row counts that do not fill a tile), on tones at 0 dB
+    per-sample SNR: a differing bin only where the plain version's top two
+    |.|^2 lie within bf16_decide.near_tie relative (the sums' order), peaks
+    within it too; one launch per call; demodulate_planar at
+    precision='bf16' decodes through it."""
+    dev = cuda_device()
+    p = LoraParams(sf=sf)
+    n = p.n
+    for b, rows_per_rot in ((1, 1), (7, 3), (301, 5)):
+        yr, yi, rate, scale = _rotation_case(p, rows_per_rot, b, seed=sf + b)
+        yr, yi = tt(yr).reshape(-1, n).to(dev), tt(yi).reshape(-1, n).to(dev)
+        cr, si = tplanar._rotation_planes(tt(rate).to(dev), tt(scale).to(dev), tparams(p))
+        for rot in ((cr.contiguous(), si.contiguous()), (None, None)):
+            launches = tbf16.LAUNCHES
+            k, kp = tbf16.bf16_decide_rows(yr, yi, n, *rot, rows_per_rot=rows_per_rot,
+                                           with_peak=True)
+            assert tbf16.LAUNCHES == launches + 1
+            r, rp = tbf16.bf16_decide_rows_reference(yr, yi, n, *rot,
+                                                     rows_per_rot=rows_per_rot,
+                                                     with_peak=True)
+            differ = (k != r).nonzero().flatten()
+            if differ.numel():
+                fr, fi = tbf16._derotate(yr, yi, n, *rot, rows_per_rot)
+                mag = tplanar.dft_mag2_planar(fr[differ], fi[differ], n, mxu_dtype=BF16)
+                top2 = mag.topk(2, dim=-1).values
+                tie = tbf16.near_tie(n) * top2[:, 0]
+                assert bool(((top2[:, 0] - top2[:, 1]) <= tie).all())
+            torch.testing.assert_close(kp, rp, rtol=tbf16.near_tie(n), atol=0)
+    if sf >= 7:
+        payloads, xr, xi = _noisy(p, None, batch=2, payload_len=4, seed=sf)
+        res = tplanar.demodulate_planar(tt(xr).to(dev), tt(xi).to(dev), tparams(p),
+                                        precision="bf16")
+        np.testing.assert_array_equal(nn(tmodem.decode(res.symbols)), payloads)

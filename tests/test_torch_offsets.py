@@ -229,18 +229,19 @@ def test_detect_vs_jax(backend):
 # models/modem.py: the complex demodulators and the offsets API
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("backend", ["xla", "auto"])
+@pytest.mark.parametrize("backend", ["xla", "auto", "dft"])
 @pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
 def test_golden_demodulate_backend(path, backend):
-    """The complex demodulator (a wrapper over the planar pipeline) with
-    the default FFT's names gives the golden decisions and JAX's offsets;
-    other backends are refused."""
+    """The complex demodulator (a wrapper over the planar pipeline, whose
+    DFT is JAX's ``dft`` formulation) under each of JAX's backend names
+    gives the golden decisions and that JAX backend's offsets; an unknown
+    name is refused."""
     g, p, dr, di = _golden_dechirped(path)
     dech = (dr + 1j * di).astype(np.complex64)
     ref = jmodem.demodulate(dech, p, backend=backend)
     got = tmodem.demodulate(_c(dech), tparams(p), backend=backend)
     with pytest.raises(ValueError, match="backend"):
-        tmodem.demodulate(_c(dech), tparams(p), backend="dft")
+        tmodem.demodulate(_c(dech), tparams(p), backend="cufft")
     np.testing.assert_array_equal(nn(got.symbols), g["demod"].astype(np.int32))
     np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
     assert int(got.sync_word) == int(ref.sync_word) == int(g["sync"])
@@ -267,14 +268,15 @@ def test_demodulate_integrated_vs_jax(sf, osr):
                                rtol=0, atol=2e-4 * p.step)
 
 
-@pytest.mark.parametrize("backend", ["xla", "auto"])
+@pytest.mark.parametrize("backend", ["xla", "auto", "dft"])
 def test_demodulate_integrated_quirk_compat(backend):
     """quirk_compat=True estimates on the raw sync chirps, as the
     reference: a bogus CFO and corrupted decisions (tests/test_e2e.py's
-    gate). Their values are not compared with JAX's: a raw chirp's
-    spectrum is flat, so its argmax is a float near-tie that JAX's own two
-    backends break differently (deadbeef at SF7: cfo 0.601 with one,
-    0.674 with the other)."""
+    gate). A raw chirp's spectrum is flat, so its argmax is a float
+    near-tie that JAX's own two backends break differently (deadbeef at
+    SF7: cfo 0.601 with ``xla``, 0.674 with ``dft``). The port's DFT is
+    the ``dft`` formulation, so under that name it gives JAX's ``dft``
+    values: cfo, time_offset and the corrupted payload 7c475cce."""
     p = LoraParams(sf=7)
     payload = np.frombuffer(bytes.fromhex("deadbeef"), dtype=np.uint8)
     iq = np.asarray(jmodem.modulate(jmodem.encode(payload), p))
@@ -282,17 +284,25 @@ def test_demodulate_integrated_quirk_compat(backend):
                                        quirk_compat=True)
     assert abs(float(res.cfo)) > 0.2
     assert not np.array_equal(nn(tmodem.decode(res.symbols)), payload)
+    if backend == "dft":
+        ref = jmodem.demodulate_integrated(iq, p, backend="dft", quirk_compat=True)
+        np.testing.assert_allclose(float(res.cfo), float(ref.cfo), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(float(res.cfo), 0.674, atol=1e-3)
+        np.testing.assert_allclose(float(res.time_offset), float(ref.time_offset),
+                                   rtol=0, atol=2e-4 * p.step)
+        np.testing.assert_array_equal(nn(res.symbols), nn(ref.symbols).astype(np.int32))
+        assert bytes(nn(tmodem.decode(res.symbols))).hex() == "7c475cce"
 
 
 def test_estimate_offsets_clean_and_backends():
     """tests/test_offsets.py's clean case: cfo ~0.0903 on the clean sync
-    pair, equal to JAX's through both of its backends; the port refuses
-    the ``dft`` name."""
+    pair, equal to JAX's through both of its backends under each of the
+    port's names; an unknown name is refused."""
     p = LoraParams(sf=7)
     _, dech = _dechirped(p)
     with pytest.raises(ValueError, match="backend"):
-        tmodem.estimate_offsets(_c(dech[: 2 * p.step]), tparams(p), backend="dft")
-    for jb, backend in (("xla", "xla"), ("dft", "auto")):
+        tmodem.estimate_offsets(_c(dech[: 2 * p.step]), tparams(p), backend="cufft")
+    for jb, backend in (("xla", "xla"), ("dft", "auto"), ("dft", "dft")):
         ref = jmodem.estimate_offsets(dech[: 2 * p.step], p, backend=jb)
         got = tmodem.estimate_offsets(_c(dech[: 2 * p.step]), tparams(p), backend=backend)
         np.testing.assert_allclose(float(got[0]), 0.0903, atol=5e-3)

@@ -179,14 +179,6 @@ def test_round_half_away_vs_jax():
                                   nn(jmodem._round_half_away(x)))
 
 
-def test_bf16_precision_not_ported():
-    p = LoraParams(sf=7)
-    tp = tparams(p)
-    x = torch.zeros(1, 4 * p.step)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanar.demodulate_planar(x, x, tp, precision="bf16")
-
-
 @pytest.mark.parametrize("n", [64, 128, 512, 4096])
 def test_dft_planar_vs_jax(n):
     """Planar DFT (four-step above 128) against JAX's: float32 sums of up
@@ -340,5 +332,14 @@ def test_demodulate_spectrum_planar_vs_jax(osr, window, dec_phase):
         if known is not None:
             np.testing.assert_array_equal(
                 nn(tmodem.decode(torch.argmax(got[0], -1).to(torch.int32))), payloads)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanar.demodulate_spectrum_planar(tt(xr), tt(xi), tp, precision="bf16")
+    # precision='bf16': the same bf16-rounded spectra as JAX's (products
+    # exact in float32, sums in another order: 1e-6 of the peak at N=128)
+    ref = jplanar.demodulate_spectrum_planar(xr, xi, p, precision="bf16",
+                                             dec_phase=dec_phase)
+    got = tplanar.demodulate_spectrum_planar(tt(xr), tt(xi), tp, precision="bf16",
+                                             dec_phase=dec_phase)
+    mag, rmag = nn(got[0]), nn(ref[0])
+    np.testing.assert_array_equal(mag.argmax(-1), rmag.argmax(-1))
+    np.testing.assert_array_equal(nn(got[1]), nn(ref[1]))
+    assert np.abs(mag - rmag).max() <= 1e-6 * rmag.max()
+    np.testing.assert_allclose(nn(got[2]), nn(ref[2]), rtol=0, atol=CFO_ATOL)
