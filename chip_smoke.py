@@ -9,11 +9,16 @@ Imports no JAX. Phases, one line each (or a few):
 
 0. the card: ``nvidia-smi`` name and power limit, and torch's device name;
 1. build and load the CUDA kernels (seconds: one nvcc per source, in parallel);
-2. the kernel against its plain PyTorch twin on the card: SF5-7, with and
-   without the Hann window, at random nonzero start/rate and a per-row
-   amplitude scale — clean chirp rows bit-equal, noise rows (a ragged
-   count) differing only at float32 near-ties — and the equal-power tie
-   row (bin 0);
+2. the kernel against its plain PyTorch twin on the card: SF2-7 (one
+   thread per row at SF2-4), with and without the Hann window, at random
+   nonzero start/rate and a per-row amplitude scale — clean chirp rows
+   bit-equal, noise rows (a ragged count) differing only at float32
+   near-ties — and the equal-power tie row (bin 0); then
+   demodulate_planar(fused=True) at SF2, 3 and 4 over 8 x 1024 frames of
+   32-byte payloads packed into SF-bit symbols (known zero offsets: the
+   2-symbol estimator reads the wrapped sync word 0x12 as an offset at
+   N < 32, in both packages): one launch per call, every payload
+   decoded bit-exact, sync 0x12, the plain path's symbols;
 3. the main path at bench.py's headline size: 8 channels x 8192 frames of
    32-byte SF7 BW125 payloads (66 symbols x 128 samples per frame, 554 M IQ
    samples), encode -> modulate_planar -> dechirp_planar ->
@@ -150,11 +155,14 @@ Imports no JAX. Phases, one line each (or a few):
    bins; 4095 noise rows equal outside bf16_decide.near_tie, the excluded
    rows counted; tie rows to the lowest natural bin; (b) the SF7 main path
    at bench.py's shape (8 x 8192 frames) through
-   demodulate_planar(precision="bf16"): every payload bit-exact, sync 0x12,
+   demodulate_planar(precision="bf16") (the wgmma design; (a) and (b)
+   print the design that serves each N): every payload bit-exact, sync 0x12,
    one launch per call (counted), offsets equal to float32's; its time
    against plain f32 and fused=True; the kernel alone on the path's rows
    against its bound, its plain version and cuBLAS's bf16 GEMM on the same
-   operands (a yardstick the port never calls); a profile; (c) the same at
+   operands (a yardstick the port never calls); where the kernel's time
+   goes (copies of its source without the products, the epilogue, the
+   row copies, the derotation or the rotation prefetch); a profile; (c) the same at
    SF12 over roofline's 1 x 1024 frames (276.8 M samples); (d) bf16
    against f32 decisions under AWGN at SF7 (393,216 data symbols at 0, -6
    and -9 dB per sample); (e) card against CPU decisions on 16 frames with
@@ -195,6 +203,8 @@ from lora_phy_tpu_torch.utils.profiling import H100_HBM_BPS as PEAK_HBM_BYTES
 
 CHANNELS, FRAMES, PAYLOAD_LEN, POOL = 8, 8192, 32, 64
 NEAR_TIE_REL = 1e-5
+# frames per channel of phase 2's SF2-4 demod
+SMALL_SF_FRAMES = 1024
 # bench.py's block-receive workload: frames per channel, payload bytes,
 # zero windows after each frame
 BLOCK_FRAMES, BLOCK_PAYLOAD, BLOCK_GAP = 512, 16, 4
@@ -356,7 +366,7 @@ def uniform_rows(gen, b, lo, hi, dev):
 
 def phase2_kernel_vs_twin(dev):
     gen = np.random.RandomState(7)
-    for sf in (5, 6, 7):
+    for sf in range(2, 8):
         for window in (Window.NONE, Window.HANN):
             p = LoraParams(sf=sf, window=window)
             n = p.n
@@ -405,6 +415,57 @@ def phase2_kernel_vs_twin(dev):
     print("phase 2: alternating-impulse tie row -> bin 0", flush=True)
 
 
+def pack_symbols(payload, sf):
+    """[..., B] uint8 payloads -> [..., ceil(8B / sf)] int32 symbols of sf
+    bits each (the payload's bits LSB first, zero-padded)."""
+    bits = (payload[..., None].to(torch.int32) >> torch.arange(8, device=payload.device)) & 1
+    bits = bits.reshape(*payload.shape[:-1], -1)
+    pad = -bits.shape[-1] % sf
+    bits = torch.nn.functional.pad(bits, (0, pad)).reshape(*bits.shape[:-1], -1, sf)
+    return (bits << torch.arange(sf, device=payload.device)).sum(-1).to(torch.int32)
+
+
+def unpack_symbols(symbols, sf, nbytes):
+    """The inverse of pack_symbols: the first ``nbytes`` bytes."""
+    bits = (symbols[..., None] >> torch.arange(sf, device=symbols.device)) & 1
+    bits = bits.reshape(*symbols.shape[:-1], -1)[..., :8 * nbytes]
+    bits = bits.reshape(*bits.shape[:-1], nbytes, 8)
+    return (bits << torch.arange(8, device=symbols.device)).sum(-1).to(torch.uint8)
+
+
+def phase2_small_sf_demod(dev):
+    """demodulate_planar(fused=True) at SF2-4 (the kernel's one-thread-per-
+    row design): payloads packed into SF-bit symbols, one launch per call,
+    decoded bit-exact; the plain path's symbols. Returns the launches per
+    path for the JSON line."""
+    launches = {}
+    for sf in (2, 3, 4):
+        p = LoraParams(sf=sf)
+        pay = torch.from_numpy(np.random.RandomState(sf).randint(
+            0, 256, (CHANNELS, SMALL_SF_FRAMES, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+        syms = pack_symbols(pay, sf)
+        xr, xi = planar.dechirp_planar(*planar.modulate_planar(syms, p), p)
+        zero = torch.zeros(CHANNELS, SMALL_SF_FRAMES, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = planar.demodulate_planar(xr, xi, p, fused=True, known_offsets=(zero, zero))
+        got = unpack_symbols(res.symbols, sf, PAYLOAD_LEN)
+        torch.cuda.synchronize()
+        path = f"small_sf{sf}"
+        launches[path] = read_launches(path)
+        check(launches[path] == 1, f"phase 2 SF{sf}: {launches[path]} fused_demod launches")
+        check(torch.equal(res.symbols, syms), f"phase 2 SF{sf}: symbols differ from the sent")
+        check(torch.equal(got, pay), f"phase 2 SF{sf}: decoded payloads differ")
+        check(bool((res.sync_word == 0x12).all()), f"phase 2 SF{sf}: sync word is not 0x12")
+        plain = planar.demodulate_planar(xr, xi, p, known_offsets=(zero, zero))
+        check(torch.equal(plain.symbols, res.symbols), f"phase 2 SF{sf}: fused=False differs")
+        print(f"phase 2: SF{sf}: demodulate_planar(fused=True) over {CHANNELS} x "
+              f"{SMALL_SF_FRAMES} frames ({syms.shape[-1]} symbols of {sf} bits each): "
+              f"{launches[path]} fused_demod launch, every payload decoded bit-exact, sync "
+              f"0x12, the plain path's symbols", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
@@ -429,6 +490,7 @@ def main():
 
     # phase 2: the kernel against its plain twin
     phase2_kernel_vs_twin(dev)
+    small_sf = phase2_small_sf_demod(dev)
     record = phase3_4_main_path(dev, card)
     torch.cuda.empty_cache()
     xr, xi, pay = phase5_block_receiver(dev, card)
@@ -472,7 +534,7 @@ def main():
     # (none calls demodulate_planar(fused=True), as in JAX): their counts are
     # read from the counter all the same
     record["launches_by_path"] = {"main": record["launches"], "coded": coded_launches,
-                                  **other}
+                                  **small_sf, **other}
     record["launches"] += coded_launches
     record19["launches_by_path"] = dict(BF16_BY_PATH)
     print(json.dumps({"kernels": [record, record19]}), flush=True)
@@ -2540,7 +2602,8 @@ def phase19a_kernel_vs_plain(dev):
             stats = [bf16_compare(f"phase 19 (a) SF{sf} {window.name} noise{tag}", nr, ni, n,
                                   r, BF16_WINDOWS, clean=False)
                      for tag, r in ((" rotated", rot), ("", (None, None)))]
-            print(f"phase 19 (a): SF{sf} window={window.name}: {bins.size} clean tone rows "
+            print(f"phase 19 (a): SF{sf} window={window.name} ({bf16.design(n)}): "
+                  f"{bins.size} clean tone rows "
                   f"equal, rotated and not, at their bins; {b} noise rows rotated / not: "
                   f"{stats[0][0]} / {stats[1][0]} differ, {stats[0][1]} / {stats[1][1]} "
                   f"excluded as near-ties (top-2 within {bf16.near_tie(n):g}); peaks within "
@@ -2606,6 +2669,86 @@ def bf16_library_ms(fr, fi, n):
     return cuda_ms(lambda: (torch.matmul(a1, b2), torch.matmul(a2, b1)), calls=10)
 
 
+# where bf16_decide's time goes at N = 128 (phase 19 (b)): copies of its
+# source with parts taken out, each anchor found exactly once (an edit of
+# the kernel that moves one fails the run rather than timing the wrong
+# thing; tests/test_torch_bf16.py checks the anchors on the CPU)
+BF16_MMA = """      wgmma_bf16<N, 1>(acc_r, ar, dr, keep);  // fr @ Wr
+      wgmma_bf16<N, 1>(acc_i, ar, di, keep);  // fr @ Wi
+      wgmma_bf16<N, -1>(acc_r, ai, di, 1);    // - fi @ Wi
+      wgmma_bf16<N, 1>(acc_i, ai, dr, 1);     // fi @ Wr"""
+BF16_ABLATIONS = {
+    # the four products of each k-step (their fence, commit and wait stay)
+    "no_mma": [(BF16_MMA, "")],
+    # |.|^2 and the argmax over 4 of each thread's N / 2 accumulator pairs
+    "no_epilogue": [("for (int j = 0; j < N / 8; ++j)", "for (int j = 0; j < 1; ++j)")],
+    # every copy after a warpgroup's first tile: no row traffic
+    "no_copy": [("if (tile + stride < tiles) copy_tile<N>(yr, yi, rows, tile + stride, "
+                 "stage, tid);", "")],
+    # the derotation arithmetic (the rotation planes are still read)
+    "no_derotate": [(f"derotate(q.yr.{c}, q.yi.{c}, q.c.{c}, q.s.{c}, fr.{c}, fi.{c});",
+                     f"fr.{c} = q.c.{c}; fi.{c} = q.s.{c};") for c in "xyzw"],
+    # the L1 prefetch of the next tile's rotation planes
+    "no_prefetch": [("  if (32 * t < N) asm volatile(\"prefetch.global.L1 [%0];\\n\" "
+                     "::\"l\"(p + 32 * t));", "")],
+}
+
+
+def bf16_ablation_source(edits):
+    """bf16_decide.cu with ``edits`` ((old, new) pairs) applied."""
+    src = _build.SOURCES[1].read_text()
+    for old, new in edits:
+        check(src.count(old) == 1, f"anchor {old!r} is not in bf16_decide.cu once")
+        src = src.replace(old, new)
+    return src
+
+
+def bf16_ablation(card, label, yr, yi, cr, si, rows_per_rot):
+    """Time bf16_decide against its BF16_ABLATIONS copies on the path's rows
+    (built in parallel, launched through their own C entry point: no
+    LAUNCHES), in interleaved rounds; returns the medians in ms."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    out_dir = _build.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def build(item):
+        name, edits = item
+        cu = out_dir / f"bf16_decide_{name}.cu"
+        cu.write_text(bf16_ablation_source(edits))
+        return name, _build.declare(ctypes.CDLL(str(
+            _build.compile_library([cu], out_dir / f"bf16_decide_{name}.so"))))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(BF16_ABLATIONS)) as pool:
+        libs = {"kernel": _build.load_library(), **dict(pool.map(build, BF16_ABLATIONS.items()))}
+    t_build = time.perf_counter() - t0
+    n = yr.shape[1]
+    wr, wi, *_ = bf16._kernel_tables(n, yr.device)
+    out = torch.empty(yr.shape[0], dtype=torch.int32, device=yr.device)
+    stream_ = torch.cuda.current_stream(yr.device).cuda_stream
+
+    def launcher(lib):
+        def call():
+            rc = lib.lora_bf16_decide(yr.data_ptr(), yi.data_ptr(), cr.data_ptr(),
+                                      si.data_ptr(), yr.shape[0], rows_per_rot, n,
+                                      wr.data_ptr(), wi.data_ptr(), None, None, None, None,
+                                      out.data_ptr(), None, stream_)
+            check(rc == 0, f"{label}: ablation launch failed ({rc})")
+        return call
+
+    times = {name: [] for name in libs}
+    for _ in range(3):
+        for name, lib in libs.items():
+            times[name].append(cuda_ms(launcher(lib), iters=3, calls=10))
+    med = {name: statistics.median(v) for name, v in times.items()}
+    print(f"{label}: {card}: where bf16_decide's time goes (copies of its source with parts "
+          f"taken out, built in {t_build:.1f} s; ms, median of 3 interleaved rounds): "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in med.items()), flush=True)
+    return med
+
+
 def bf16_path(dev, card, label, p, channels, frames, path):
     """One bf16 decision path at full width: encode -> modulate -> dechirp
     -> demodulate_planar(precision='bf16') -> decode, every payload
@@ -2668,13 +2811,15 @@ def bf16_path(dev, card, label, p, channels, frames, path):
     t_plain = cuda_ms(lambda: bf16.bf16_decide_rows_reference(yr, yi, n, cr, si,
                                                               rows_per_rot=s_count),
                       iters=3)
+    ablation = (bf16_ablation(card, label, yr, yi, cr, si, s_count)
+                if bf16.design(n) == "wgmma" else None)
     bound_ms, bound_by, flops, nbytes = bf16_bound(rows, nframes, n)
     fr, fi = bf16._derotate(yr, yi, n, cr, si, s_count)
     del yr, yi
     t_lib = bf16_library_ms(fr, fi, n)
     del fr, fi
     print(f"{label}: {card}: bf16_decide_rows on {rows} rows x N={n} with the frames' "
-          f"rotation: CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s, "
+          f"rotation: CUDA kernel ({bf16.design(n)}) {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s, "
           f"{flops / t_kernel / 1e9:.1f} TFLOP/s bf16), plain version {t_plain:.3f} ms; bins "
           f"equal; bound {bound_ms:.3f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B), "
           f"{bound_ms / t_kernel:.3f} of it; cuBLAS bf16 GEMM alone on the same operands "
@@ -2684,7 +2829,7 @@ def bf16_path(dev, card, label, p, channels, frames, path):
     return {"launches": launches, "max_abs_err": max_abs_err, "ms": t_kernel,
             "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t_lib, "demod_bf16_ms": t_bf16, "demod_f32_ms": t_f32,
-            "demod_fused_ms": t_fused, "rows": rows, "n": n}
+            "demod_fused_ms": t_fused, "rows": rows, "n": n, "ablation_ms": ablation}
 
 
 def phase19d_awgn(dev, card):
@@ -2768,6 +2913,9 @@ def phase19_bf16(dev, card):
                                    "bound_by", "library_ms")},
             "sf12": {k: sf12[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")},
+            # the design that serves each N (the top-level numbers are SF7's)
+            "design": {str(n): bf16.design(n) for n in bf16.KERNEL_N},
+            "ablation_ms": sf7["ablation_ms"],
             "demod_ms": {"sf7_bf16": sf7["demod_bf16_ms"], "sf7_f32": sf7["demod_f32_ms"],
                          "sf7_fused": sf7["demod_fused_ms"],
                          "sf12_bf16": sf12["demod_bf16_ms"], "sf12_f32": sf12["demod_f32_ms"]}}

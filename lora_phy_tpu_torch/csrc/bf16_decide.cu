@@ -28,23 +28,60 @@
 //
 // What bounds it on an H100: the rows are read once (8 bytes a sample) and
 // 4-8 bytes a row are written; the DFT is 8 N^2 bf16 flop a row at
-// N <= 128 (SF7: 131,072 flop against 1,024 bytes, 128 flop a byte) and
-// 8 N (n1 + n2) in the four-step (SF12: 4.2 Mflop against 32 KiB, 128 flop
-// a byte), both under the card's ~295 bf16 flop a byte, so the function is
-// bound by bytes. Design: no derotated plane and no spectrum is written to
-// device memory. A block walks tiles of rows; per tile it loads the f32
-// rows (float4, coalesced), derotates and rounds them to bf16 into shared
-// memory, then each warp runs mma.sync.m16n8k16 (bf16 in, f32 accumulate)
-// on a 16-row x 32-bin task with the DFT tables resident in shared memory
-// (only Wr and Wi: the -fi @ Wi term negates the A fragment, exactly), and
-// reduces |.|^2 to a (value, bin) pair per row in registers and shuffles.
-// In the four-step the stage-1 accumulators are twiddled in registers and
-// written transposed, as bf16, straight into stage 2's shared operand.
-// Fragments are read with 32-bit shared loads; every row stride is an odd
-// multiple of 16 bytes, so they are free of bank conflicts. N < 16 pads K
-// to 16 and the bins to 8 with zeros, which change no sum. A simple first
-// kernel: wgmma and TMA, and overlapping a tile's loads with the previous
-// tile's products, are later work.
+// N <= 128 and 8 N (n1 + n2) in the four-step, 128 flop a byte at SF7 and
+// SF12, under the card's ~295 bf16 flop a byte, so the function is bound
+// by bytes. At the SF7 main path (4,325,376 rows x 128, with rotation)
+// that is 4.514e9 B, 1.347 ms at 3.35 TB/s; the tensor cores' share is
+// 5.67e11 flop, 0.573 ms at the 989 TFLOP/s dense peak. No derotated
+// plane and no spectrum is written to device memory.
+//
+// N = 32, 64, 128 (bf16_decide_wgmma): two warpgroups of 128 threads per
+// block, a persistent grid of the blocks the card holds (one per SM at
+// N = 128: 208 KB of shared memory); each warpgroup walks its own 64-row
+// tiles, so one's CUDA-core work (derotation, epilogue, copies) runs
+// while the other's products hold the tensor cores.
+// - B: Wr^T and Wi^T ([bin][k], K-major) stay in shared memory for the
+//   whole call, 64 KB at N = 128, built on the host in the no-swizzle
+//   canonical wgmma layout (ops/bf16_decide.py::wgmma_layout), so the
+//   kernel copies bytes and computes no swizzle.
+// - A from registers: warp w owns tile rows 16w..16w+15 in the m16n8k16
+//   A-fragment layout; a thread derotates its rows' samples (op by op)
+//   and rounds them straight into its bf16x2 A registers. The host
+//   permutes k inside each 16-deep step so that a thread's four columns
+//   of a row are one float4. Per k-step four m64nNk16 products feed two
+//   accumulators: acc_r += fr Wr, acc_r += -fi Wi (the instruction's A
+//   scale of -1: exact), acc_i += fr Wi, acc_i += fi Wr; at N = 128 the
+//   two f32 accumulators take 128 registers a thread.
+// - Overlap: rows come in through a two-stage ring, one stage per
+//   warpgroup, of cp.async copies (16 bytes each, zero-filled past the
+//   last row; row stride N + 16 floats, so the float4 fragment reads are
+//   free of bank conflicts). A warpgroup starts its next tile's copies as
+//   soon as its last k-step is in registers, under its last products,
+//   its epilogue and the other warpgroup's tile; the rotation-plane rows
+//   of its next tile are pulled into L1 (prefetch) when a tile starts.
+//   A third stage does not fit beside the 64 KB of tables at N = 128.
+//   Inside a tile wgmma is asynchronous: k-step s + 1 is derotated on the
+//   CUDA cores while k-step s's products run on the tensor cores
+//   (wgmma.wait_group 1). The epilogue is in registers: a row's N bins
+//   lie in one quad of one warp, so |.|^2, a strict-> scan in bin order
+//   and two shuffles finish it, with no cross-warp combine.
+// On an H100 (PERF.md section 6, chip_smoke.py phase 19 (b)), one
+// warpgroup per block left a tile's loads, products and epilogue in
+// series; the second warpgroup and the L1 prefetch of the rotation planes
+// brought the kernel near its bound. Refilling a stage one k-step at a
+// time (a barrier per k-step) was slower, and is not used.
+//
+// N = 4, 8, 16 (bf16_decide_direct) and N > 128 (bf16_decide_fourstep)
+// stay on mma.sync.m16n8k16: a block walks tiles of rows; per tile it
+// loads the f32 rows (float4), derotates and rounds them to bf16 into
+// shared memory, then each warp runs mma.sync on a 16-row task with the
+// tables resident in shared memory, and reduces |.|^2 to a (value, bin)
+// pair per row in registers, shuffles and shared memory. In the four-step
+// the stage-1 accumulators are twiddled in registers and written
+// transposed, as bf16, straight into stage 2's shared operand. Fragments
+// are read with 32-bit shared loads; every row stride is an odd multiple
+// of 16 bytes, so they are free of bank conflicts. N < 16 pads K to 16 and
+// the bins to 8 with zeros, which change no sum.
 
 #include <atomic>
 #include <cstdint>
@@ -296,6 +333,343 @@ bf16_decide_direct(const float* __restrict__ yr, const float* __restrict__ yi,
 }
 
 // ---------------------------------------------------------------------------
+// N = 32, 64, 128: wgmma with A from registers, rows through a two-stage
+// cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;  // threads of a warpgroup
+constexpr int kWgs = 2;          // warpgroups per block, each on its own tiles
+constexpr int kWgRows = 64;      // rows per tile: the wgmma M
+
+template <int N>
+struct Wg {
+  // f32 per staged row: N + 16 makes the fragment reads (float4 at columns
+  // 4t of rows g and g+1 in one quarter warp) hit 32 distinct banks
+  static constexpr int LD = N + 16;
+  static constexpr int kStage = 2 * kWgRows * LD;  // f32 per stage (yr, yi of a tile)
+  static constexpr int kTable = N * N;              // bf16 per table
+  static constexpr size_t kSmem =
+      2 * sizeof(__nv_bfloat16) * kTable + kWgs * sizeof(float) * kStage;
+  // the tables' canonical no-swizzle K-major layout (ops/bf16_decide.py::
+  // wgmma_layout): 8 x 8 core matrices of 128 contiguous bytes, the two
+  // 8-deep halves of a k-step side by side (LBO), 8-bin groups 16 N bytes
+  // apart (SBO); k-step s starts 256 s bytes in
+  static constexpr uint32_t kLbo = 128;
+  static constexpr uint32_t kSbo = 16 * N;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A wgmma shared-memory descriptor: start address, LBO and SBO in 16-byte
+// units, base offset 0, layout type 0 (no swizzle)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending));
+}
+// generic-proxy writes to shared memory (the tables) made visible to the
+// async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !live
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// a barrier of the 128 threads of warpgroup `wg` (named barrier 1 + wg)
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWgThreads) : "memory");
+}
+
+// d = (scale_d ? d : 0) + kScaleA * a @ B for one m64nNk16 wgmma: bf16
+// operands, f32 accumulators in registers. `a` is this thread's A fragment
+// (warp w of the warpgroup holds rows 16w..16w+15 in the m16n8k16 A layout);
+// B is [N bins][16 k] K-major in shared memory, read through `desc`. kScaleA
+// = -1 negates A, exactly. Asynchronous: the result is there after
+// wgmma_commit() and a wgmma_wait<> that covers it.
+template <int N, int kScaleA>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma widths of the N <= 128 path");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, %22, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kScaleA));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, %38, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kScaleA));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, %70, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kScaleA));
+  }
+}
+
+// Start the copies of one 64-row tile (both planes, rows past `rows`
+// zero-filled) into a stage [plane][64][LD], by the 128 threads of one
+// warpgroup (`tid` = thread within it).
+template <int N>
+__device__ __forceinline__ void copy_tile(const float* __restrict__ yr,
+                                          const float* __restrict__ yi, long long rows,
+                                          long long tile, float* dst, int tid) {
+  constexpr int kChunks = N / 4;  // 16-byte chunks per row
+#pragma unroll 4
+  for (int i = tid; i < kWgRows * kChunks; i += kWgThreads) {
+    const int r = i / kChunks, q = i % kChunks;
+    const long long row = tile * kWgRows + r;
+    const bool live = row < rows;
+    const long long off = (live ? row : 0) * N + 4 * q;
+    float* d = dst + r * Wg<N>::LD + 4 * q;
+    cp_async16(d, yr + off, live);
+    cp_async16(d + kWgRows * Wg<N>::LD, yi + off, live);
+  }
+}
+
+// Pull a rotation-plane row into L1 ahead of its tile: thread t of a quad
+// touches its 128-byte line t.
+template <int N>
+__device__ __forceinline__ void prefetch_plane(const float* p, int t) {
+  if (32 * t < N) asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p + 32 * t));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One row's four samples of a k-step as read from the ring (and its
+// rotation planes' four values when kRot)
+struct Quad {
+  float4 yr, yi, c, s;
+};
+
+template <bool kRot>
+__device__ __forceinline__ Quad load_quad(const float* yr, const float* yi, const float* c,
+                                          const float* s) {
+  Quad q;
+  q.yr = *reinterpret_cast<const float4*>(yr);
+  q.yi = *reinterpret_cast<const float4*>(yi);
+  if (kRot) {
+    q.c = __ldg(reinterpret_cast<const float4*>(c));
+    q.s = __ldg(reinterpret_cast<const float4*>(s));
+  }
+  return q;
+}
+
+// Derotate a quad op by op and round it to bf16: the low and high A
+// registers of its row (k-step columns 4t, 4t+1 and 4t+2, 4t+3, which the
+// host's k permutation puts at the fragment's k slots 2t, 2t+1 and 2t+8,
+// 2t+9), real and imaginary.
+template <bool kRot>
+__device__ __forceinline__ void quad_fragment(const Quad& q, uint32_t& r_lo, uint32_t& r_hi,
+                                              uint32_t& i_lo, uint32_t& i_hi) {
+  float4 fr = q.yr, fi = q.yi;
+  if (kRot) {
+    derotate(q.yr.x, q.yi.x, q.c.x, q.s.x, fr.x, fi.x);
+    derotate(q.yr.y, q.yi.y, q.c.y, q.s.y, fr.y, fi.y);
+    derotate(q.yr.z, q.yi.z, q.c.z, q.s.z, fr.z, fi.z);
+    derotate(q.yr.w, q.yi.w, q.c.w, q.s.w, fr.w, fi.w);
+  }
+  r_lo = pack_bf16(fr.x, fr.y);
+  r_hi = pack_bf16(fr.z, fr.w);
+  i_lo = pack_bf16(fi.x, fi.y);
+  i_hi = pack_bf16(fi.z, fi.w);
+}
+
+template <int N, bool kRot>
+__global__ void __launch_bounds__(kWgs * kWgThreads, 1)
+bf16_decide_wgmma(const float* __restrict__ yr, const float* __restrict__ yi,
+                  const float* __restrict__ cr, const float* __restrict__ si, long long rows,
+                  long long rows_per_rot, const __nv_bfloat16* __restrict__ wr,
+                  const __nv_bfloat16* __restrict__ wi, int* __restrict__ out,
+                  float* __restrict__ peak) {
+  using W = Wg<N>;
+  constexpr int kSteps = N / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_wr = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* s_wi = s_wr + W::kTable;
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  float* stage = reinterpret_cast<float*>(s_wi + W::kTable) + wg * W::kStage;
+
+  // warpgroup wg walks tiles blockIdx.x * kWgs + wg + k * gridDim.x * kWgs
+  const long long tiles = (rows + kWgRows - 1) / kWgRows;
+  const long long stride = static_cast<long long>(gridDim.x) * kWgs;
+  long long tile = static_cast<long long>(blockIdx.x) * kWgs + wg;
+  // the first tile's rows in flight, then the tables, copied as bytes
+  if (tile < tiles) copy_tile<N>(yr, yi, rows, tile, stage, tid);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < W::kTable / 8; i += kWgs * kWgThreads) {
+    reinterpret_cast<uint4*>(s_wr)[i] = __ldg(reinterpret_cast<const uint4*>(wr) + i);
+    reinterpret_cast<uint4*>(s_wi)[i] = __ldg(reinterpret_cast<const uint4*>(wi) + i);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's tile rows: r0 and r0 + 8
+  const uint32_t wr_addr = smem_u32(s_wr), wi_addr = smem_u32(s_wi);
+  float acc_r[N / 2], acc_i[N / 2];
+#pragma unroll
+  for (int c = 0; c < N / 2; ++c) acc_r[c] = acc_i[c] = 0.0f;
+
+  for (; tile < tiles; tile += stride) {
+    // this tile's rows have landed (every thread's copies of the warpgroup)
+    cp_async_wait_all();
+    wg_barrier(wg);
+
+    const float* y0r = stage + r0 * W::LD + 4 * t;
+    const float* y0i = y0r + kWgRows * W::LD;
+    const float* y1r = y0r + 8 * W::LD;
+    const float* y1i = y0i + 8 * W::LD;
+    const long long row0 = tile * kWgRows + r0, row1 = row0 + 8;
+    const float *c0 = nullptr, *s0 = nullptr, *c1 = nullptr, *s1 = nullptr;
+    if (kRot) {  // rows past the end take the last row's planes (never written)
+      const long long rot0 = (row0 < rows ? row0 : rows - 1) / rows_per_rot;
+      const long long rot1 = (row1 < rows ? row1 : rows - 1) / rows_per_rot;
+      c0 = cr + rot0 * N + 4 * t;
+      s0 = si + rot0 * N + 4 * t;
+      c1 = cr + rot1 * N + 4 * t;
+      s1 = si + rot1 * N + 4 * t;
+      if (tile + stride < tiles) {  // the next tile's planes, into L1 meanwhile
+        const long long nrow0 = (tile + stride) * kWgRows + r0, nrow1 = nrow0 + 8;
+        const long long nrot0 = (nrow0 < rows ? nrow0 : rows - 1) / rows_per_rot;
+        const long long nrot1 = (nrow1 < rows ? nrow1 : rows - 1) / rows_per_rot;
+        prefetch_plane<N>(cr + nrot0 * N, t);
+        prefetch_plane<N>(si + nrot0 * N, t);
+        prefetch_plane<N>(cr + nrot1 * N, t);
+        prefetch_plane<N>(si + nrot1 * N, t);
+      }
+    }
+
+    // k-step s: derotate it into A registers while k-step s - 1's products
+    // run, issue its four products, load k-step s + 1's samples, then wait
+    // for k-step s - 1 (whose A registers the next derotation reuses).
+    // Once the last k-step is in registers the stage is free: the next
+    // tile's copies start there, under the last products and the epilogue
+    // (and the other warpgroup's work).
+    Quad q0 = load_quad<kRot>(y0r, y0i, c0, s0);
+    Quad q1 = load_quad<kRot>(y1r, y1i, c1, s1);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t ar[4], ai[4];
+      quad_fragment<kRot>(q0, ar[0], ar[2], ai[0], ai[2]);
+      quad_fragment<kRot>(q1, ar[1], ar[3], ai[1], ai[3]);
+      if (s + 1 < kSteps) {
+        const int k = 16 * (s + 1);
+        q0 = load_quad<kRot>(y0r + k, y0i + k, c0 + k, s0 + k);
+        q1 = load_quad<kRot>(y1r + k, y1i + k, c1 + k, s1 + k);
+      } else {
+        wg_barrier(wg);
+        if (tile + stride < tiles) copy_tile<N>(yr, yi, rows, tile + stride, stage, tid);
+        cp_async_commit();
+      }
+      const uint64_t dr = smem_desc(wr_addr + 256 * s, W::kLbo, W::kSbo);
+      const uint64_t di = smem_desc(wi_addr + 256 * s, W::kLbo, W::kSbo);
+      const int keep = s > 0;
+      wgmma_fence();
+      wgmma_bf16<N, 1>(acc_r, ar, dr, keep);  // fr @ Wr
+      wgmma_bf16<N, 1>(acc_i, ar, di, keep);  // fr @ Wi
+      wgmma_bf16<N, -1>(acc_r, ai, di, 1);    // - fi @ Wi
+      wgmma_bf16<N, 1>(acc_i, ai, dr, 1);     // fi @ Wr
+      wgmma_commit();
+      if (s + 1 < kSteps)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+    }
+
+    // |.|^2 and each row's best bin: element c of n-tile j is row
+    // r0 + 8 (c >> 1), bin 8j + 2t + (c & 1); a thread meets its bins in
+    // increasing order, so a strict > keeps the first maximum
+    float bv[2] = {neg_inf(), neg_inf()};
+    int bk[2] = {N, N};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float v = mag2(acc_r[4 * j + c], acc_i[4 * j + c]);
+        if (v > bv[c >> 1]) {
+          bv[c >> 1] = v;
+          bk[c >> 1] = 8 * j + 2 * t + (c & 1);
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv[h], off);
+        const int ok = __shfl_xor_sync(0xffffffffu, bk[h], off);
+        take_max(bv[h], bk[h], ov, ok);
+      }
+    if (t == 0) {
+      if (row0 < rows) {
+        out[row0] = bk[0];
+        if (peak != nullptr) peak[row0] = bv[0];
+      }
+      if (row1 < rows) {
+        out[row1] = bk[1];
+        if (peak != nullptr) peak[row1] = bv[1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // N > 128: the four-step over tiles of RB rows stacked along M
 // ---------------------------------------------------------------------------
 
@@ -460,8 +834,8 @@ bf16_decide_fourstep(const float* __restrict__ yr, const float* __restrict__ yi,
 // Blocks of `kernel` resident on the current device at once (with its
 // dynamic shared memory allowed), queried once per device and kept.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t smem, std::atomic<long long>* cache,
-                            long long* blocks) {
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                            std::atomic<long long>* cache, long long* blocks) {
   constexpr int kMaxDevices = 64;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -476,7 +850,7 @@ cudaError_t resident_blocks(Kernel kernel, size_t smem, std::atomic<long long>* 
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   *blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (device < kMaxDevices) cache[device].store(*blocks, std::memory_order_relaxed);
@@ -499,11 +873,26 @@ int launch_direct(const Args& a) {
   auto kernel = bf16_decide_direct<N, kRot>;
   constexpr size_t smem = Direct<N>::kSmem;
   long long resident = 0;
-  cudaError_t err = resident_blocks(kernel, smem, cache, &resident);
+  cudaError_t err = resident_blocks(kernel, kThreads, smem, cache, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (a.rows + Direct<N>::R - 1) / Direct<N>::R;
   const long long blocks = tiles < resident ? tiles : resident;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
+      a.yr, a.yi, a.cr, a.si, a.rows, a.rows_per_rot, a.wa_r, a.wa_i, a.out, a.peak);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, bool kRot>
+int launch_wgmma(const Args& a) {
+  static std::atomic<long long> cache[64];
+  auto kernel = bf16_decide_wgmma<N, kRot>;
+  constexpr size_t smem = Wg<N>::kSmem;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(kernel, kWgs * kWgThreads, smem, cache, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long pairs = (a.rows + kWgs * kWgRows - 1) / (kWgs * kWgRows);
+  const long long blocks = pairs < resident ? pairs : resident;
+  kernel<<<static_cast<unsigned>(blocks), kWgs * kWgThreads, smem, a.stream>>>(
       a.yr, a.yi, a.cr, a.si, a.rows, a.rows_per_rot, a.wa_r, a.wa_i, a.out, a.peak);
   return static_cast<int>(cudaGetLastError());
 }
@@ -514,7 +903,7 @@ int launch_fourstep(const Args& a) {
   auto kernel = bf16_decide_fourstep<N1, N2, RB, kRot>;
   constexpr size_t smem = FourStep<N1, N2, RB>::kSmem;
   long long resident = 0;
-  cudaError_t err = resident_blocks(kernel, smem, cache, &resident);
+  cudaError_t err = resident_blocks(kernel, kThreads, smem, cache, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (a.rows + RB - 1) / RB;
   const long long blocks = tiles < resident ? tiles : resident;
@@ -530,9 +919,9 @@ int dispatch(int n, const Args& a) {
     case 4: return launch_direct<4, kRot>(a);
     case 8: return launch_direct<8, kRot>(a);
     case 16: return launch_direct<16, kRot>(a);
-    case 32: return launch_direct<32, kRot>(a);
-    case 64: return launch_direct<64, kRot>(a);
-    case 128: return launch_direct<128, kRot>(a);
+    case 32: return launch_wgmma<32, kRot>(a);
+    case 64: return launch_wgmma<64, kRot>(a);
+    case 128: return launch_wgmma<128, kRot>(a);
     // (n1, n2) of the four-step split (ops/fft.py::_split); rows per tile
     // chosen so that each stage has at least one task per warp
     case 256: return launch_fourstep<16, 16, 8, kRot>(a);
@@ -549,7 +938,9 @@ int dispatch(int n, const Args& a) {
 // yr, yi: [rows, n] f32; cr, si: [rows / rows_per_rot, n] f32 rotation
 // planes or both null (no derotation); row r uses rotation
 // r / rows_per_rot. wa_r, wa_i: the bf16 DFT tables Wr, Wi transposed,
-// [bin][k] — for n <= 128 [max(n, 8)][max(n, 16)] zero-padded, for n > 128
+// [bin][k] — for n = 32..128 [n][n] in the wgmma layout
+// (ops/bf16_decide.py::wgmma_layout), for n = 4..16 [max(n, 8)][max(n, 16)]
+// zero-padded, for n > 128
 // stage 1's [n2][n2]; wb_r, wb_i: stage 2's [n1][n1] (null for n <= 128);
 // twr, twi: the [n1][n2] f32 twiddles (null for n <= 128). out: [rows]
 // int32 bins; peak: [rows] f32 peak |.|^2 or null. Launches on `stream`

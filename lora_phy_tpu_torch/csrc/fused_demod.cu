@@ -20,7 +20,9 @@
 // [rows x N] x [N x N] product (8 N^2 flop per row) would instead be held
 // by f32 FMA throughput at >= 8.5 ms.
 //
-// Design: G = N / 16 threads per row, each holding R = 16 samples at
+// Design (N = 32, 64, 128; N = 4, 8, 16 take fused_demod_small below, one
+// thread per row through the same step 1, fft_dif and argmax rule):
+// G = N / 16 threads per row, each holding R = 16 samples at
 // stride G (n = t + G*j), so a warp covers 32 / G rows and every load
 // instruction reads whole 32-byte sectors. With k = k1 + R*k2:
 //   X[k1 + R*k2] = sum_t W_G^(t*k2) * W_N^(t*k1) * sum_j x[t + G*j] W_R^(j*k1)
@@ -75,6 +77,28 @@ __host__ __device__ constexpr int bit_reverse(int v, int bits) {
 }
 
 __host__ __device__ constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v >> 1); }
+
+// Step 1 for sample n (as an exact float) of a row: x * scale, rounded on
+// its own as torch's yr * scale; the phase start + rate*n and its
+// full-precision sincosf; the rotation and the window, each op rounded
+// on its own, so the samples are the twin's floats.
+template <bool kWindow>
+__device__ __forceinline__ void load_step(float& re, float& im, float sc, float st, float rt,
+                                          float n, float w) {
+  const float a = __fmul_rn(re, sc);
+  const float b = __fmul_rn(im, sc);
+  const float ph = __fadd_rn(st, __fmul_rn(rt, n));
+  float s, c;
+  sincosf(ph, &s, &c);
+  float fr = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s));
+  float fi = __fadd_rn(__fmul_rn(a, s), __fmul_rn(b, c));
+  if (kWindow) {
+    fr = __fmul_rn(fr, w);
+    fi = __fmul_rn(fi, w);
+  }
+  re = fr;
+  im = fi;
+}
 
 // One stage of an M-point radix-2 decimation-in-frequency FFT over
 // re/im[OFF .. OFF+M): butterflies HALF apart, then the next stage. Every
@@ -209,24 +233,10 @@ fused_demod_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       const float rt = rate[row];
       const float sc = scale != nullptr ? scale[row] : 1.0f;
 #pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        // x * scale rounded on its own, as torch's yr * scale
-        const float a = __fmul_rn(re[j], sc);
-        const float b = __fmul_rn(im[j], sc);
+      for (int j = 0; j < kR; ++j)
         // n = t + G*j as a float, exactly (t_f + G*j is an integer < 2^24)
-        const float ph = __fadd_rn(st, __fmul_rn(rt, t_f + static_cast<float>(G * j)));
-        float s, c;
-        sincosf(ph, &s, &c);
-        float fr = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s));
-        float fi = __fadd_rn(__fmul_rn(a, s), __fmul_rn(b, c));
-        if (kWindow) {
-          const float w = win_s[t + G * j];
-          fr = __fmul_rn(fr, w);
-          fi = __fmul_rn(fi, w);
-        }
-        re[j] = fr;
-        im[j] = fi;
-      }
+        load_step<kWindow>(re[j], im[j], sc, st, rt, t_f + static_cast<float>(G * j),
+                           win_s[t + G * j]);
     }
 
     // 2. R-point FFT over j; position p holds k1 = bit_reverse(p)
@@ -287,12 +297,72 @@ fused_demod_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// Blocks of fused_demod_kernel<N, kWindow> resident on the current
-// device's SMs at once, queried once per device and kept.
+// N = 4, 8, 16 (SF2-4): one thread per row. The thread holds the row's N
+// samples in registers, applies step 1, runs the N-point radix-2 DIF over
+// them (the same fft_dif and twiddle table) and takes the first-max
+// argmax over the natural bins in its own registers: no transpose, no
+// shuffle. A warp reads 32 whole rows (N <= 16 floats each), so its
+// float4 loads cover contiguous bytes.
 template <int N, bool kWindow>
-cudaError_t resident_blocks(long long* blocks) {
+__global__ void __launch_bounds__(kThreads)
+fused_demod_small(const float* __restrict__ xr, const float* __restrict__ xi,
+                  const float* __restrict__ start, const float* __restrict__ rate,
+                  const float* __restrict__ scale, const float* __restrict__ window,
+                  const float2* __restrict__ twiddle, int* __restrict__ out, long long rows) {
+  static_assert(N >= 4 && N <= 16 && (N & (N - 1)) == 0, "N in 4 / 8 / 16");
+  constexpr int kBits = log2i(N);
+  __shared__ float2 tw_s[N];
+  __shared__ float win_s[N];
+  for (int i = threadIdx.x; i < N; i += kThreads) {
+    tw_s[i] = twiddle[i];
+    if (kWindow) win_s[i] = window[i];
+  }
+  __syncthreads();
+  float2 w[N / 2];  // W_N^e
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) w[e] = tw_s[e];
+
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       row < rows; row += stride) {
+    float re[N], im[N];
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(xr + row * N) + q);
+      const float4 b = __ldg(reinterpret_cast<const float4*>(xi + row * N) + q);
+      re[4 * q] = a.x, re[4 * q + 1] = a.y, re[4 * q + 2] = a.z, re[4 * q + 3] = a.w;
+      im[4 * q] = b.x, im[4 * q + 1] = b.y, im[4 * q + 2] = b.z, im[4 * q + 3] = b.w;
+    }
+    const float st = start[row];
+    const float rt = rate[row];
+    const float sc = scale != nullptr ? scale[row] : 1.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      load_step<kWindow>(re[j], im[j], sc, st, rt, static_cast<float>(j), win_s[j]);
+
+    // position p holds bin bit_reverse(p); scan the bins in natural order,
+    // so a strict > keeps the first maximum
+    fft_dif<N, 0, N>(re, im, w);
+    float best = re[0] * re[0] + im[0] * im[0];
+    int best_k = 0;
+#pragma unroll
+    for (int k = 1; k < N; ++k) {
+      const int p = bit_reverse(k, kBits);
+      const float v = re[p] * re[p] + im[p] * im[p];
+      if (v > best) {
+        best = v;
+        best_k = k;
+      }
+    }
+    out[row] = best_k;
+  }
+}
+
+// Blocks of `kernel` resident on the current device's SMs at once,
+// queried once per device and kept in `cache`.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, std::atomic<long long>* cache, long long* blocks) {
   constexpr int kMaxDevices = 64;
-  static std::atomic<long long> cache[kMaxDevices];  // 0: not queried yet
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -303,25 +373,43 @@ cudaError_t resident_blocks(long long* blocks) {
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_demod_kernel<N, kWindow>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return err;
   *blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (device < kMaxDevices) cache[device].store(*blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }
 
+// The kernel of N: one thread per row at N <= 16, G = N / 16 above.
+template <int N, bool kWindow>
+constexpr auto kernel_for() {
+  if constexpr (N <= 16)
+    return fused_demod_small<N, kWindow>;
+  else
+    return fused_demod_kernel<N, kWindow>;
+}
+
+template <int N>
+constexpr int rows_per_block() {
+  if constexpr (N <= 16)
+    return kThreads;
+  else
+    return kWarps * 32 / (N / kR);
+}
+
 template <int N, bool kWindow>
 int launch_variant(const float* xr, const float* xi, const float* start, const float* rate,
                    const float* scale, const float* window, const float2* twiddle, int* out,
                    long long rows, cudaStream_t stream) {
-  constexpr int kRowsPerBlock = kWarps * 32 / (N / kR);
+  static std::atomic<long long> cache[64];  // 0: not queried yet
+  constexpr int kRowsPerBlock = rows_per_block<N>();
+  auto kernel = kernel_for<N, kWindow>();
   long long resident = 0;
-  const cudaError_t err = resident_blocks<N, kWindow>(&resident);
+  const cudaError_t err = resident_blocks(kernel, cache, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long needed = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const long long blocks = needed < resident ? needed : resident;
-  fused_demod_kernel<N, kWindow><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       xr, xi, start, rate, scale, window, twiddle, out, rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -352,6 +440,9 @@ extern "C" int lora_fused_demod(const float* xr, const float* xi, const float* s
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* tw = reinterpret_cast<const float2*>(twiddle);
   switch (n) {
+    case 4: return launch<4>(xr, xi, start, rate, scale, window, tw, out, rows, s);
+    case 8: return launch<8>(xr, xi, start, rate, scale, window, tw, out, rows, s);
+    case 16: return launch<16>(xr, xi, start, rate, scale, window, tw, out, rows, s);
     case 32: return launch<32>(xr, xi, start, rate, scale, window, tw, out, rows, s);
     case 64: return launch<64>(xr, xi, start, rate, scale, window, tw, out, rows, s);
     case 128: return launch<128>(xr, xi, start, rate, scale, window, tw, out, rows, s);

@@ -39,6 +39,15 @@ LAUNCHES = 0
 
 # N the kernel takes: every power of two of LoraParams' SF2-12
 KERNEL_N = tuple(1 << sf for sf in range(2, 13))
+# N served by the wgmma design (A from registers, tables in the layout of
+# wgmma_layout); the others run mma.sync (N <= 16 direct, N > 128 four-step)
+WGMMA_N = (32, 64, 128)
+
+
+def design(n: int) -> str:
+    """The kernel design that serves N: ``"wgmma"`` (N = 32, 64, 128) or
+    ``"mma.sync"`` (N <= 16 and the four-step above 128)."""
+    return "wgmma" if n in WGMMA_N else "mma.sync"
 
 
 def near_tie(n: int) -> float:
@@ -91,16 +100,51 @@ def _pair_tables(m: np.ndarray, k: int, kp: int, np_: int):
     return out
 
 
+def _wgmma_columns(k: int) -> np.ndarray:
+    """Column of the [bins, k] table held at each k slot of the wgmma
+    tables: in k-step s (slots 16s..16s+15), slots 2t, 2t+1, 2t+8, 2t+9
+    of the A fragment take columns 16s + 4t .. 16s + 4t + 3, so that a
+    thread reads its four samples of a row as one float4."""
+    p = np.arange(k) % 16
+    return (np.arange(k) // 16) * 16 + 4 * ((p % 8) // 2) + 2 * (p // 8) + p % 2
+
+
+def wgmma_layout(wt: np.ndarray) -> np.ndarray:
+    """A [bins, k] table (``Wr.T`` or ``Wi.T``) in the N = 32..128 kernel's
+    shared-memory order, flat: k permuted by :func:`_wgmma_columns`, then
+    8 x 8 core matrices of 8 bins x 8 k (row-major, 128 bytes of bf16),
+    core matrix (b, c) of 8-bin group b and 8-deep k group c at position
+    ``b * (k / 8) + c``: the canonical no-swizzle K-major layout of a wgmma
+    B operand, with LBO = 128 bytes (k groups) and SBO = 16 k bytes (bin
+    groups)."""
+    bins, k = wt.shape
+    slotted = wt[:, _wgmma_columns(k)]
+    return np.ascontiguousarray(
+        slotted.reshape(bins // 8, 8, k // 8, 8).transpose(0, 2, 1, 3).reshape(-1))
+
+
+def wgmma_unlayout(flat: np.ndarray, bins: int, k: int) -> np.ndarray:
+    """The inverse of :func:`wgmma_layout`: the [bins, k] table back."""
+    slotted = np.asarray(flat).reshape(bins // 8, k // 8, 8, 8).transpose(0, 2, 1, 3)
+    wt = np.empty((bins, k), slotted.dtype)
+    wt[:, _wgmma_columns(k)] = slotted.reshape(bins, k)
+    return wt
+
+
 @functools.lru_cache(maxsize=32)
 def _kernel_tables(n: int, device: torch.device):
     """The kernel's constants on ``device``: bf16 DFT tables rounded by torch
     from the port's own float32 numpy builders (the same bits the plain
     version's ``_mm`` rounds to), and for N > 128 the stage-2 tables and the
     float32 [n1, n2] twiddles. ``(wa_r, wa_i, wb_r, wb_i, twr, twi)``, None
-    where the N <= 128 kernel takes nothing."""
+    where the N <= 128 kernel takes nothing. At N in :data:`WGMMA_N` the
+    tables are flat [N * N] in :func:`wgmma_layout`'s order."""
     def bf16(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).to(device)
 
+    if n in WGMMA_N:
+        wa = _pair_tables(planar._combined_dft_mat(n), n, n, n)
+        return bf16(wgmma_layout(wa[0])), bf16(wgmma_layout(wa[1])), None, None, None, None
     if n <= 128:
         wa = _pair_tables(planar._combined_dft_mat(n), n, max(n, 16), max(n, 8))
         return bf16(wa[0]), bf16(wa[1]), None, None, None, None
@@ -136,6 +180,9 @@ def _check(yr, yi, n, cr, si, rows_per_rot):
             raise ValueError(f"{name} is on {t.device}, yr on {yr.device}")
         if t.device.type == "cuda" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
+                             f"reads it as float4)")
 
 
 def bf16_decide_rows(yr: torch.Tensor, yi: torch.Tensor, n: int,

@@ -35,8 +35,9 @@ from ..models.modem import _window_table
 # path went through the kernel.
 LAUNCHES = 0
 
-# N values the CUDA kernel is instantiated for (SF5-7)
-CUDA_N = (32, 64, 128)
+# N values the CUDA kernel is instantiated for (SF2-7: one thread per row
+# at N <= 16, N / 16 threads per row above)
+CUDA_N = (4, 8, 16, 32, 64, 128)
 
 
 @functools.lru_cache(maxsize=16)
@@ -113,6 +114,9 @@ def _check_rows(operands, n):
             raise ValueError(f"{name} is on {t.device}, xr on {operands['xr'].device}")
         if t.device.type == "cuda" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.device.type == "cuda" and name in ("xr", "xi") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
+                             f"reads rows as float4)")
 
 
 def fused_detect_rows(xr: torch.Tensor, xi: torch.Tensor, start: torch.Tensor,
@@ -121,7 +125,7 @@ def fused_detect_rows(xr: torch.Tensor, xi: torch.Tensor, start: torch.Tensor,
     """Fused detection over [B, N] planar rows with per-row derotation
     phase ``start`` and per-sample ``rate_rows`` ([B] each), the rows
     multiplied first by ``scale_rows`` ([B]) when given. Returns [B]
-    int32 argmax bins. N <= 128; the CUDA kernel takes N in 32/64/128."""
+    int32 argmax bins. N <= 128: the CUDA kernel takes every N of SF2-7."""
     global LAUNCHES
     n = params.n
     if n > 128:

@@ -286,8 +286,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_kernel_tables_are_the_plain_versions_bits():
     """The kernel's bf16 tables are torch's rounding of the port's float32
     builders, transposed and zero-padded (N < 16), so kernel and plain
-    version multiply the same bits; the twiddles are the float32 ones."""
-    for n in (4, 128):
+    version multiply the same bits; the twiddles are the float32 ones.
+    (N = 32..128: test_wgmma_tables_are_the_plain_versions_bits.)"""
+    for n in (4, 8, 16):
         wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
         m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
         assert wr.shape == (max(n, 8), max(n, 16)) and wr.dtype == BF16
@@ -304,6 +305,55 @@ def test_kernel_tables_are_the_plain_versions_bits():
     np.testing.assert_array_equal(nn(twi), ftwi)
 
 
+@pytest.mark.parametrize("n", tbf16.WGMMA_N)
+def test_wgmma_tables_are_the_plain_versions_bits(n):
+    """At N = 32..128 the kernel's tables are flat [N * N] in the wgmma
+    layout: a permutation of _pair_tables' bf16 bits, which the documented
+    inverse map (wgmma_unlayout) takes back to Wr^T and Wi^T exactly; the
+    layout's core matrices sit where the kernel's descriptors look."""
+    wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
+    assert wr.shape == (n * n,) and wr.dtype == BF16 and wbr is None and twr is None
+    m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
+    for got, want in ((wr, m[:n, :n].T), (wi, m[:n, n:].T)):
+        bits = nn(got.view(torch.int16))
+        back = tbf16.wgmma_unlayout(bits, n, n)
+        np.testing.assert_array_equal(back, nn(want.contiguous().view(torch.int16)))
+        assert sorted(bits.tolist()) == sorted(back.reshape(-1).tolist())
+    # element (bin b, k slot q) at core matrix (b // 8, q // 8): k-step s is
+    # 256 bytes = 128 elements in, 8-bin groups 16 N bytes = 8 N elements apart
+    cols = tbf16._wgmma_columns(n)
+    flat = nn(wr.view(torch.int16))
+    want = nn(m[:n, :n].T.contiguous().view(torch.int16))
+    for b, q in ((0, 0), (7, 15), (8, 16), (n - 1, n - 1), (13, 9)):
+        pos = (b // 8) * 8 * n + (q // 16) * 128 + ((q % 16) // 8) * 64 + (b % 8) * 8 + q % 8
+        assert flat[pos] == want[b, cols[q]]
+    assert [cols[q] for q in (0, 1, 2, 8, 9)] == [0, 1, 4, 2, 3]
+
+
+def test_chip_smoke_ablations_find_their_anchors():
+    """Each of chip_smoke.py's copies of bf16_decide.cu (phase 19 (b): where
+    the wgmma kernel's time goes) finds every statement it replaces exactly
+    once in the kernel's source, and changes it."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_anchors", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shipped = smoke.bf16_ablation_source([])
+    for name, edits in smoke.BF16_ABLATIONS.items():
+        src = smoke.bf16_ablation_source(edits)
+        assert src != shipped, name
+        assert all(old not in src for old, _ in edits), name
+
+
+def test_kernel_design_per_n():
+    """N = 32, 64, 128 run the wgmma design, every other N mma.sync."""
+    assert [tbf16.design(n) for n in tbf16.KERNEL_N] == (
+        ["mma.sync"] * 3 + ["wgmma"] * 3 + ["mma.sync"] * 5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sf", list(range(2, 13)))
 def test_cuda_kernel_matches_plain_version(sf):
@@ -312,11 +362,12 @@ def test_cuda_kernel_matches_plain_version(sf):
     per-sample SNR: a differing bin only where the plain version's top two
     |.|^2 lie within bf16_decide.near_tie relative (the sums' order), peaks
     within it too; one launch per call; demodulate_planar at
-    precision='bf16' decodes through it."""
+    precision='bf16' decodes through it. Row counts 63, 64, 65 and 4097
+    sit at the edges of the wgmma design's 64-row tile."""
     dev = cuda_device()
     p = LoraParams(sf=sf)
     n = p.n
-    for b, rows_per_rot in ((1, 1), (7, 3), (301, 5)):
+    for b, rows_per_rot in ((1, 1), (7, 3), (301, 5), (63, 1), (32, 2), (13, 5), (4097, 1)):
         yr, yi, rate, scale = _rotation_case(p, rows_per_rot, b, seed=sf + b)
         yr, yi = tt(yr).reshape(-1, n).to(dev), tt(yi).reshape(-1, n).to(dev)
         cr, si = tplanar._rotation_planes(tt(rate).to(dev), tt(scale).to(dev), tparams(p))

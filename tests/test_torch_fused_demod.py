@@ -85,7 +85,7 @@ def test_fused_tie_break():
 
 
 @pytest.mark.parametrize("window", [Window.NONE, Window.HANN], ids=["none", "hann"])
-@pytest.mark.parametrize("sf", [5, 6, 7])
+@pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7])
 def test_twin_matches_jax_kernel_on_random_rows(sf, window):
     """2000 noise rows at random start (up to +-300 rad) and rate: the
     plain twin's bins equal the Pallas kernel's (interpret mode) bins."""
@@ -124,6 +124,8 @@ def test_dft_tables_bit_equal(sf, window):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    # the CUDA kernel takes every N the wrapper takes (SF2-7, as JAX's)
+    assert tfused.CUDA_N == tuple(1 << sf for sf in range(2, 8))
     p = LoraParams(sf=8)
     tp = tparams(p)
     x = torch.zeros(4, p.n)
@@ -191,7 +193,7 @@ def test_demodulate_planar_fused_scaled_vs_jax(sf):
     np.testing.assert_array_equal(nn(got.symbols), nn(plain.symbols))
 
 
-@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128])
 def test_twiddle_table_quarter_points_exact(n):
     tw = tfused._twiddles(n)
     assert tw.dtype == np.float32 and tw.shape == (n, 2)
@@ -230,7 +232,9 @@ def _kernel_emulation(xr, xi, start, rate, p):
     """The CUDA kernel's algorithm in numpy float32, stage for stage
     (csrc/fused_demod.cu steps 1-6): G = N/16 threads per row holding
     samples t + G*j, a 16-point FFT over j, the twiddles W_N^(t*k1), the
-    transpose, G-point FFTs over t, first-max argmax on natural bins."""
+    transpose, G-point FFTs over t, first-max argmax on natural bins. At
+    N <= 16 (fused_demod_small) one thread holds the row: one N-point FFT,
+    then the argmax on natural bins."""
     n = p.n
     r, g = 16, n // 16
     tw = tfused._twiddles(n)
@@ -241,6 +245,13 @@ def _kernel_emulation(xr, xi, start, rate, p):
     w = jmodem._window_table(p)
     if w is not None:
         fr, fi = fr * w, fi * w
+    if n <= 16:
+        re, im = fr.copy(), fi.copy()
+        _dif(re, im, tw)
+        k = np.array([_bit_reverse(q, n.bit_length() - 1) for q in range(n)])
+        mag = np.empty_like(re)
+        mag[:, k] = re * re + im * im
+        return np.argmax(mag, axis=-1).astype(np.int32)
     # [B, t, j]: thread t holds sample t + G*j
     re = fr.reshape(-1, r, g).transpose(0, 2, 1).copy()
     im = fi.reshape(-1, r, g).transpose(0, 2, 1).copy()
@@ -261,7 +272,7 @@ def _kernel_emulation(xr, xi, start, rate, p):
 
 
 @pytest.mark.parametrize("window", [Window.NONE, Window.HANN], ids=["none", "hann"])
-@pytest.mark.parametrize("sf", [5, 6, 7])
+@pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7])
 def test_kernel_fft_emulation_matches_twin(sf, window):
     """On 2000 noise rows the kernel's FFT (emulated in numpy) gives the
     dense twin's bins, except where the twin's top two magnitudes lie
@@ -310,7 +321,7 @@ def test_ablation_variants_find_their_anchors():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [Window.NONE, Window.HANN], ids=["none", "hann"])
-@pytest.mark.parametrize("sf", [5, 6, 7])
+@pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7])
 def test_cuda_kernel_matches_twin(sf, window):
     """The CUDA kernel against its plain twin on the card: equal bins on
     clean chirp rows, scaled (amplitude above 1) or not; on noise rows, at
