@@ -163,7 +163,10 @@ Imports no JAX. Phases, one line each (or a few):
    operands (a yardstick the port never calls); where the kernel's time
    goes (copies of its source without the products, the epilogue, the
    row copies, the derotation or the rotation prefetch); a profile; (c) the same at
-   SF12 over roofline's 1 x 1024 frames (276.8 M samples); (d) bf16
+   SF8-12 (the four-step on wgmma) over one channel of 1024 x 2^(12 - SF)
+   frames (276.8 M samples each, SF12's being roofline's), where the time
+   goes taken at SF12 (copies without either stage's products, the row
+   copies, the bs writes, the combine or the derotation); (d) bf16
    against f32 decisions under AWGN at SF7 (393,216 data symbols at 0, -6
    and -9 dB per sample); (e) card against CPU decisions on 16 frames with
    CFOs at SF7 and SF12.
@@ -256,11 +259,13 @@ VECTOR_CELLS = tuple((sf, 1, Window.NONE, 0.0, 0.0) for sf in range(7, 13)) + (
 PERF_PACKETS, SWEEP_TRIALS = 1000, 16
 # the bf16 decision kernel (phase 19): noise rows per SF (585 frames of 7
 # windows, a count no tile size divides), clean-tone frames per SF; frames
-# of the SF12 path (roofline's 1 x 1024); the AWGN probe's per-sample SNRs
+# of the SF12 path (roofline's 1 x 1024; SF8-11 run 2^(12 - SF) times as
+# many, the same samples); the AWGN probe's per-sample SNRs
 # and frames per channel (8 x 768 frames x 64 data symbols = 393,216 per
 # SNR); frames of the card-against-CPU prefix
 BF16_NOISE_FRAMES, BF16_WINDOWS, BF16_TONE_FRAMES = 585, 7, 64
 BF16_SF12_FRAMES = 1024
+BF16_FOURSTEP_SFS = (8, 9, 10, 11, 12)
 BF16_AWGN_SNRS, BF16_AWGN_FRAMES = (0.0, -6.0, -9.0), 768
 BF16_CPU_FRAMES = 16
 
@@ -466,15 +471,20 @@ def phase2_small_sf_demod(dev):
     return launches
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    return smi.splitlines()[0]
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is false")
     # phase 0: the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
@@ -2669,10 +2679,10 @@ def bf16_library_ms(fr, fi, n):
     return cuda_ms(lambda: (torch.matmul(a1, b2), torch.matmul(a2, b1)), calls=10)
 
 
-# where bf16_decide's time goes at N = 128 (phase 19 (b)): copies of its
-# source with parts taken out, each anchor found exactly once (an edit of
-# the kernel that moves one fails the run rather than timing the wrong
-# thing; tests/test_torch_bf16.py checks the anchors on the CPU)
+# where bf16_decide's time goes (phase 19 (b) at N = 128, (c) at N = 4096):
+# copies of its source with parts taken out, each anchor found exactly once
+# (an edit of the kernel that moves one fails the run rather than timing the
+# wrong thing; tests/test_torch_bf16.py checks the anchors on the CPU)
 BF16_MMA = """      wgmma_bf16<N, 1>(acc_r, ar, dr, keep);  // fr @ Wr
       wgmma_bf16<N, 1>(acc_i, ar, di, keep);  // fr @ Wi
       wgmma_bf16<N, -1>(acc_r, ai, di, 1);    // - fi @ Wi
@@ -2692,6 +2702,34 @@ BF16_ABLATIONS = {
     "no_prefetch": [("  if (32 * t < N) asm volatile(\"prefetch.global.L1 [%0];\\n\" "
                      "::\"l\"(p + 32 * t));", "")],
 }
+# the same for the four-step (N = 256..4096, bf16_decide_fourstep)
+FOURSTEP_ABLATIONS = {
+    # stage 1's four products of each k-step (fence, commit and wait stay)
+    "no_stage1": [("""        wgmma_ss<N2, 1>(acc_r[m], ar, wr, s > 0);  // xr @ Wr
+        wgmma_ss<N2, 1>(acc_i[m], ar, wi, s > 0);  // xr @ Wi
+        wgmma_ss<N2, -1>(acc_r[m], ai, wi, 1);  // - xi @ Wi
+        wgmma_ss<N2, 1>(acc_i[m], ai, wr, 1);   // xi @ Wr""", "")],
+    # stage 2's
+    "no_stage2": [("""        wgmma_ss<N1, 1>(acc2_r[h], ar, wr, s > 0);  // br @ Wr
+        wgmma_ss<N1, 1>(acc2_i[h], ar, wi, s > 0);  // br @ Wi
+        wgmma_ss<N1, -1>(acc2_r[h], ai, wi, 1);  // - bi @ Wi
+        wgmma_ss<N1, 1>(acc2_i[h], ai, wr, 1);   // bi @ Wr""", "")],
+    # every copy after a warpgroup's first tile: no row traffic
+    "no_copy": [("if (tile + WGS < end) copy_frames<N1, N2>(yr, yi, rows, tile + WGS, "
+                 "stage, tid);", "")],
+    # the twiddle and the bs writes (stage 2 reads what is there)
+    "no_bs_writes": [("""          s_x[off] = __float2bfloat16_rn(br);
+          s_x[off + F::kA] = __float2bfloat16_rn(bi);""", "")],
+    # the combine of a frame row's bins across lanes and warps
+    "no_combine": [("for (int off = 1; off < 32; off <<= 1) {",
+                    "for (int off = 1; off < 1; off <<= 1) {"),
+                   ("for (int q = 1; q < kPer; ++q)", "for (int q = 1; q < 1; ++q)")],
+    # the derotation and the rotation planes' reads
+    "no_derotate": [("if (kRot) derotate(fr[e], fi[e], __ldg(pc + i), __ldg(ps + i), fr[e], "
+                     "fi[e]);", "")],
+}
+# the path whose kernel each set takes apart: SF7 (N = 128), SF12 (N = 4096)
+BF16_PATH_ABLATIONS = {7: BF16_ABLATIONS, 12: FOURSTEP_ABLATIONS}
 
 
 def bf16_ablation_source(edits):
@@ -2703,37 +2741,38 @@ def bf16_ablation_source(edits):
     return src
 
 
-def bf16_ablation(card, label, yr, yi, cr, si, rows_per_rot):
-    """Time bf16_decide against its BF16_ABLATIONS copies on the path's rows
-    (built in parallel, launched through their own C entry point: no
-    LAUNCHES), in interleaved rounds; returns the medians in ms."""
+def bf16_ablation(card, label, yr, yi, cr, si, rows_per_rot, ablations):
+    """Time bf16_decide against its ``ablations`` copies on the path's rows
+    (built in parallel, launched through their own C entry point with all
+    of the kernel's tables: no LAUNCHES), in interleaved rounds; returns
+    the medians in ms."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
+    label_tag = f"n{yr.shape[1]}"
 
     def build(item):
         name, edits = item
-        cu = out_dir / f"bf16_decide_{name}.cu"
+        cu = out_dir / f"bf16_decide_{label_tag}_{name}.cu"
         cu.write_text(bf16_ablation_source(edits))
         return name, _build.declare(ctypes.CDLL(str(
-            _build.compile_library([cu], out_dir / f"bf16_decide_{name}.so"))))
+            _build.compile_library([cu], out_dir / f"bf16_decide_{label_tag}_{name}.so"))))
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(BF16_ABLATIONS)) as pool:
-        libs = {"kernel": _build.load_library(), **dict(pool.map(build, BF16_ABLATIONS.items()))}
+    with ThreadPoolExecutor(len(ablations)) as pool:
+        libs = {"kernel": _build.load_library(), **dict(pool.map(build, ablations.items()))}
     t_build = time.perf_counter() - t0
     n = yr.shape[1]
-    wr, wi, *_ = bf16._kernel_tables(n, yr.device)
+    tables = [None if t is None else t.data_ptr() for t in bf16._kernel_tables(n, yr.device)]
     out = torch.empty(yr.shape[0], dtype=torch.int32, device=yr.device)
     stream_ = torch.cuda.current_stream(yr.device).cuda_stream
 
     def launcher(lib):
         def call():
             rc = lib.lora_bf16_decide(yr.data_ptr(), yi.data_ptr(), cr.data_ptr(),
-                                      si.data_ptr(), yr.shape[0], rows_per_rot, n,
-                                      wr.data_ptr(), wi.data_ptr(), None, None, None, None,
+                                      si.data_ptr(), yr.shape[0], rows_per_rot, n, *tables,
                                       out.data_ptr(), None, stream_)
             check(rc == 0, f"{label}: ablation launch failed ({rc})")
         return call
@@ -2811,8 +2850,9 @@ def bf16_path(dev, card, label, p, channels, frames, path):
     t_plain = cuda_ms(lambda: bf16.bf16_decide_rows_reference(yr, yi, n, cr, si,
                                                               rows_per_rot=s_count),
                       iters=3)
-    ablation = (bf16_ablation(card, label, yr, yi, cr, si, s_count)
-                if bf16.design(n) == "wgmma" else None)
+    ablations = BF16_PATH_ABLATIONS.get(p.sf)
+    ablation = (bf16_ablation(card, label, yr, yi, cr, si, s_count, ablations)
+                if ablations else None)
     bound_ms, bound_by, flops, nbytes = bf16_bound(rows, nframes, n)
     fr, fi = bf16._derotate(yr, yi, n, cr, si, s_count)
     del yr, yi
@@ -2894,14 +2934,29 @@ def phase19e_card_vs_cpu(dev):
           f"payloads decoded", flush=True)
 
 
+def phase19c_fourstep(dev, card):
+    """Phase 19 (c): the four-step's paths, SF8-12, each over one channel of
+    BF16_SF12_FRAMES << (12 - SF) frames (~277 M samples); SF12 last.
+    Returns each SF's numbers. To hold two versions of the kernel on one
+    card, unpack the other tree (``git archive``) into a directory that
+    .gitignore lists, copy this file to its root and run, from each tree
+    in turns (other, this, this, other), ``python3 -c "import torch,
+    chip_smoke as c; c.BF16_PATH_ABLATIONS.clear();
+    c.phase19c_fourstep(torch.device('cuda', 0), c.card_line())"`` (without
+    the ablations, whose anchors are this tree's)."""
+    return {sf: bf16_path(dev, card, f"phase 19 (c) SF{sf}", LoraParams(sf=sf), 1,
+                          BF16_SF12_FRAMES << (12 - sf), f"bf16_sf{sf}")
+            for sf in BF16_FOURSTEP_SFS}
+
+
 def phase19_bf16(dev, card):
     """Phase 19 (a)-(e); returns the bf16 kernel's record for the JSON line."""
     phase19a_kernel_vs_plain(dev)
     torch.cuda.empty_cache()
     sf7 = bf16_path(dev, card, "phase 19 (b) SF7", LoraParams(sf=7), CHANNELS, FRAMES,
                     "bf16_sf7")
-    sf12 = bf16_path(dev, card, "phase 19 (c) SF12", LoraParams(sf=12), 1, BF16_SF12_FRAMES,
-                     "bf16_sf12")
+    paths = phase19c_fourstep(dev, card)
+    sf12 = paths[12]
     phase19d_awgn(dev, card)
     torch.cuda.empty_cache()
     phase19e_card_vs_cpu(dev)
@@ -2911,11 +2966,13 @@ def phase19_bf16(dev, card):
             "replaces": "lora_phy_tpu/ops/planar.py:179",
             **{k: sf7[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
-            "sf12": {k: sf12[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by", "library_ms")},
+            **{f"sf{sf}": {k: rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms",
+                                                "demod_bf16_ms", "rows", "n")}
+               for sf, rec in paths.items()},
             # the design that serves each N (the top-level numbers are SF7's)
             "design": {str(n): bf16.design(n) for n in bf16.KERNEL_N},
-            "ablation_ms": sf7["ablation_ms"],
+            "ablation_ms": sf7["ablation_ms"], "fourstep_ablation_ms": sf12["ablation_ms"],
             "demod_ms": {"sf7_bf16": sf7["demod_bf16_ms"], "sf7_f32": sf7["demod_f32_ms"],
                          "sf7_fused": sf7["demod_fused_ms"],
                          "sf12_bf16": sf12["demod_bf16_ms"], "sf12_f32": sf12["demod_f32_ms"]}}

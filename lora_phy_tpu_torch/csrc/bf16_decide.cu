@@ -32,8 +32,9 @@
 // SF12, under the card's ~295 bf16 flop a byte, so the function is bound
 // by bytes. At the SF7 main path (4,325,376 rows x 128, with rotation)
 // that is 4.514e9 B, 1.347 ms at 3.35 TB/s; the tensor cores' share is
-// 5.67e11 flop, 0.573 ms at the 989 TFLOP/s dense peak. No derotated
-// plane and no spectrum is written to device memory.
+// 5.67e11 flop, 0.573 ms at the 989 TFLOP/s dense peak. At SF12 (67,584
+// rows x 4096) 2.248e9 B, 0.671 ms. No derotated plane and no spectrum is
+// written to device memory.
 //
 // N = 32, 64, 128 (bf16_decide_wgmma): two warpgroups of 128 threads per
 // block, a persistent grid of the blocks the card holds (one per SM at
@@ -71,17 +72,56 @@
 // brought the kernel near its bound. Refilling a stage one k-step at a
 // time (a barrier per k-step) was slower, and is not used.
 //
-// N = 4, 8, 16 (bf16_decide_direct) and N > 128 (bf16_decide_fourstep)
-// stay on mma.sync.m16n8k16: a block walks tiles of rows; per tile it
-// loads the f32 rows (float4), derotates and rounds them to bf16 into
-// shared memory, then each warp runs mma.sync on a 16-row task with the
-// tables resident in shared memory, and reduces |.|^2 to a (value, bin)
-// pair per row in registers, shuffles and shared memory. In the four-step
-// the stage-1 accumulators are twiddled in registers and written
-// transposed, as bf16, straight into stage 2's shared operand. Fragments
-// are read with 32-bit shared loads; every row stride is an odd multiple
-// of 16 bytes, so they are free of bank conflicts. N < 16 pads K to 16 and
-// the bins to 8 with zeros, which change no sum.
+// N = 256..4096 (bf16_decide_fourstep, one template over the (n1, n2) of
+// ops/fft.py::_split): warpgroups of 128 threads, each on its own tiles of
+// RB frame rows (16 at N = 256, else 64 / n1: 4, 2, 2, 1), so that stage
+// 1's M, RB n1 rows (rb, i1), is one m64 tile (four at N = 256); two
+// warpgroups a block and two blocks an SM at N <= 1024, three and one
+// above. A block takes a contiguous run of tiles, so frame rows that share
+// a rotation row stay on one SM.
+// - Both operands of both stages come from shared memory, in the one
+//   no-swizzle K-major core-matrix layout (LBO 128 B, SBO 16 K B; checked
+//   on the card for A and B, n = 16..64, by a one-off probe): stage 1 A =
+//   xst [(rb, i1)][i2] against M(n2)'s Wr^T, Wi^T [k2][i2]; stage 2 A = bs
+//   [(rb, k2)][i1] (RB n2 rows: one to four m64 chains) against M1R's
+//   [k1][i1]. The host builds the four tables in that layout
+//   (wgmma_layout without the k permutation) and the twiddles in the order
+//   a thread reads them (fourstep_twiddles: one float4 an n-tile), so the
+//   kernel copies bytes. Four products a k-step into two f32
+//   accumulators, -im @ Wi through the A scale of -1; the first product of
+//   each accumulator ignores what its registers hold, so they live only
+//   through their stage.
+// - Rows: a tile's RB frame rows are contiguous, copied by cp.async into
+//   the warpgroup's f32 stage; as soon as the tile is derotated into xst
+//   the stage is free and the next tile's copies start, so they run under
+//   both stages' products and epilogues and the other warpgroups' tiles.
+//   The derotation reads eight samples i2 n1 + i1 of one xst row (lanes on
+//   consecutive i1, so the f32 stage and the rotation planes are read
+//   without bank conflicts or waste) and writes them as one 16-byte core
+//   row. The next tile's new rotation rows are prefetched into L1.
+// - Stage 1's epilogue twiddles its accumulators in f32 (op by op) and
+//   writes them as bf16 straight into bs, which takes xst's place (a
+//   warp's stores of one n-tile land in one 128-byte core matrix). Stage
+//   2's epilogue takes |.|^2 and a first maximum over natural bins
+//   k1 n2 + k2: a thread meets its bins in increasing order (a strict >),
+//   a warp's 16 rows of a chain lie in one frame row (shuffles), and a
+//   frame row's warps meet in shared memory under the warpgroup's
+//   barrier. Shared memory at N = 4096: 32 KB of tables, 32 KB of
+//   twiddles and 48 KB a warpgroup (the f32 stage, xst / bs).
+// On an H100 (PERF.md section 6, chip_smoke.py phase 19 (c)): 1024-sample
+// tiles at N = 256 were held by a tile's fixed costs (four barriers, two
+// product round trips), which 4096-sample tiles spread; at N >= 2048 a
+// third warpgroup beat two with the twiddles in registers.
+//
+// N = 4, 8, 16 (bf16_decide_direct) stay on mma.sync.m16n8k16: a block
+// walks tiles of rows; per tile it loads the f32 rows (float4), derotates
+// and rounds them to bf16 into shared memory, then each warp runs
+// mma.sync on a 16-row task with the tables resident in shared memory,
+// and reduces |.|^2 to a (value, bin) pair per row in registers, shuffles
+// and shared memory. Fragments are read with 32-bit shared loads; every
+// row stride is an odd multiple of 16 bytes, so they are free of bank
+// conflicts. N < 16 pads K to 16 and the bins to 8 with zeros, which
+// change no sum.
 
 #include <atomic>
 #include <cstdint>
@@ -479,8 +519,8 @@ __device__ __forceinline__ void copy_tile(const float* __restrict__ yr,
   }
 }
 
-// Pull a rotation-plane row into L1 ahead of its tile: thread t of a quad
-// touches its 128-byte line t.
+// Pull a rotation-plane row into L1 ahead of its tile: thread t touches
+// its 128-byte line t.
 template <int N>
 __device__ __forceinline__ void prefetch_plane(const float* p, int t) {
   if (32 * t < N) asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p + 32 * t));
@@ -670,136 +710,343 @@ bf16_decide_wgmma(const float* __restrict__ yr, const float* __restrict__ yi,
 }
 
 // ---------------------------------------------------------------------------
-// N > 128: the four-step over tiles of RB rows stacked along M
+// N = 256..4096: the four-step on wgmma, both operands from shared memory
 // ---------------------------------------------------------------------------
 
-template <int N1, int N2, int RB>
-struct FourStep {
+// d = (scale_d ? d : 0) + kScaleA * A @ B for one m64nNBk16 wgmma with both
+// operands in shared memory (no-swizzle K-major, read through `da` / `db`):
+// bf16 operands, f32 accumulators in registers (element 4j + c is row
+// 16 warp + g + 8 (c >> 1), column 8j + 2t + (c & 1)). kScaleA = -1 negates
+// A, exactly. Asynchronous, as wgmma_bf16.
+template <int NB, int kScaleA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NB / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(NB == 16 || NB == 32 || NB == 64, "wgmma widths of the four-step");
+  if constexpr (NB == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, %11, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kScaleA));
+  } else if constexpr (NB == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, %19, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kScaleA));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, %35, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kScaleA));
+  }
+}
+
+// Offset (in elements) of (row, k) in a [rows][K] bf16 operand in the
+// no-swizzle K-major core-matrix layout: 8 x 8 core matrices of 128
+// contiguous bytes, k groups side by side (LBO 128 B), 8-row groups 16 K
+// bytes apart (SBO); k-step s starts 256 s bytes in.
+template <int K>
+__device__ __forceinline__ int core_offset(int row, int k) {
+  return ((row >> 3) * (K / 8) + (k >> 3)) * 64 + (row & 7) * 8 + (k & 7);
+}
+
+template <int N1, int N2>
+struct Fs {
   static constexpr int N = N1 * N2;
-  static constexpr int CH1 = N2 < kChunk ? N2 : kChunk;
-  static constexpr int NCH1 = N2 / CH1;
-  static constexpr int TASKS1 = RB * N1 / 16 * NCH1;
-  static constexpr int CH2 = N1 < kChunk ? N1 : kChunk;
-  static constexpr int NCH2 = N1 / CH2;
-  static constexpr int PARTS = N2 / 16 * NCH2;  // (value, bin) pairs per row
-  static constexpr int TASKS2 = RB * PARTS;
-  static constexpr int LDA1 = 2 * N2 + kPad, LDA2 = 2 * N1 + kPad;
-  static constexpr int LDB2 = N2 + kPad, LDB1 = N1 + kPad;
+  // (RB, WGS, kMinBlocks) are ops/bf16_decide.py's FOURSTEP_TILE, which
+  // the tests use to land on tile edges: change both together.
+  // warpgroups a block, each on its own tiles, and blocks an SM: two and
+  // two at N <= 1024 (128 registers a thread), three and one above
+  static constexpr int WGS = N >= 2048 ? 3 : 2;
+  static constexpr int kMinBlocks = N >= 2048 ? 1 : 2;
+  // frame rows per tile: stage 1's M (RB N1) is one m64 tile, four at N =
+  // 256 (where a 1024-sample tile was held by its fixed costs)
+  static constexpr int RB = N == 256 ? 16 : kWgRows / N1;
+  static constexpr int M1 = RB * N1;        // stage 1's rows (rb, i1)
+  static constexpr int MT = M1 / kWgRows;   // its m64 chains
+  static constexpr int M2 = RB * N2;        // stage 2's rows (rb, k2)
+  static constexpr int CH2 = M2 / kWgRows;  // its m64 chains
+  // f32 per staged frame row: + 16 puts the two frame rows a warp reads at
+  // N1 = 16 on disjoint banks
+  static constexpr int LDS = N + 16;
+  static constexpr int kPlane = RB * LDS;    // f32 per staged plane
+  static constexpr int kT1 = N2 * N2;        // bf16 per stage-1 table [k2][i2]
+  static constexpr int kT2 = N1 * N1;        // bf16 per stage-2 table [k1][i1]
+  static constexpr int kA1 = M1 * N2;        // bf16 per xst plane [(rb, i1)][i2]
+  static constexpr int kA2 = M2 * N1;        // bf16 per bs plane [(rb, k2)][i1]
+  static constexpr int kA = kA1 > kA2 ? kA1 : kA2;  // xst, then bs in its place
+  static constexpr int kTw = kWgRows * N2;   // f32 per twiddle plane, fragment order
+  static constexpr int kSlots = 4 * CH2;     // (value, bin) of each warp and chain
+  static constexpr size_t kWgBytes =
+      (sizeof(float) * 2 * kPlane + sizeof(__nv_bfloat16) * 2 * kA +
+       (sizeof(float) + sizeof(int)) * kSlots + 127) / 128 * 128;
   static constexpr size_t kSmem =
-      sizeof(__nv_bfloat16) * (2 * N2 * LDB2 + 2 * N1 * LDB1 + RB * N1 * LDA1 + RB * N2 * LDA2) +
-      sizeof(float) * 2 * N1 * N2 + (sizeof(float) + sizeof(int)) * TASKS2;
-  static_assert(N1 % 16 == 0 && N2 % 16 == 0, "four-step factors are multiples of 16");
+      sizeof(__nv_bfloat16) * 2 * (kT1 + kT2) + sizeof(float) * 2 * kTw + WGS * kWgBytes;
+  static_assert(N1 % 16 == 0 && N2 % 16 == 0 && M1 % kWgRows == 0 && M2 % kWgRows == 0,
+                "four-step shape");
+  static_assert(kMinBlocks * kSmem <= 227 * 1024, "shared memory of an SM");
 };
 
-template <int N1, int N2, int RB, bool kRot>
-__global__ void __launch_bounds__(kThreads)
+// Start the copies of tile `tile` (RB frame rows, contiguous in device
+// memory; rows past `rows` zero-filled) into a stage [plane][RB][LDS], by
+// the 128 threads of one warpgroup.
+template <int N1, int N2>
+__device__ __forceinline__ void copy_frames(const float* __restrict__ yr,
+                                            const float* __restrict__ yi, long long rows,
+                                            long long tile, float* dst, int tid) {
+  using F = Fs<N1, N2>;
+  constexpr int kChunks = F::RB * F::N / 4;  // 16-byte chunks per plane
+#pragma unroll 4
+  for (int i = tid; i < kChunks; i += kWgThreads) {
+    const int rb = i / (F::N / 4), q = i % (F::N / 4);
+    const long long row = tile * F::RB + rb;
+    const bool live = row < rows;
+    const long long off = (live ? row : 0) * F::N + 4 * q;
+    float* d = dst + rb * F::LDS + 4 * q;
+    cp_async16(d, yr + off, live);
+    cp_async16(d + F::kPlane, yi + off, live);
+  }
+}
+
+// The rotation-plane row of frame row `row` (rows past the end take the
+// last row's; never written)
+__device__ __forceinline__ long long rot_of(long long row, long long rows,
+                                            long long rows_per_rot) {
+  return (row < rows ? row : rows - 1) / rows_per_rot;
+}
+
+template <int N1, int N2, bool kRot>
+__global__ void __launch_bounds__(Fs<N1, N2>::WGS * kWgThreads, Fs<N1, N2>::kMinBlocks)
 bf16_decide_fourstep(const float* __restrict__ yr, const float* __restrict__ yi,
                      const float* __restrict__ cr, const float* __restrict__ si, long long rows,
-                     long long rows_per_rot, const __nv_bfloat16* __restrict__ w2r,
-                     const __nv_bfloat16* __restrict__ w2i, const __nv_bfloat16* __restrict__ w1r,
-                     const __nv_bfloat16* __restrict__ w1i, const float* __restrict__ twr,
+                     long long rows_per_rot, const __nv_bfloat16* __restrict__ w1r,
+                     const __nv_bfloat16* __restrict__ w1i, const __nv_bfloat16* __restrict__ w2r,
+                     const __nv_bfloat16* __restrict__ w2i, const float* __restrict__ twr,
                      const float* __restrict__ twi, int* __restrict__ out,
                      float* __restrict__ peak) {
-  using F = FourStep<N1, N2, RB>;
-  constexpr int N = F::N;
+  using F = Fs<N1, N2>;
+  constexpr int N = F::N, RB = F::RB, M1 = F::M1, WGS = F::WGS;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_b2r = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_b2i = s_b2r + N2 * F::LDB2;
-  __nv_bfloat16* s_b1r = s_b2i + N2 * F::LDB2;
-  __nv_bfloat16* s_b1i = s_b1r + N1 * F::LDB1;
-  __nv_bfloat16* s_a1 = s_b1i + N1 * F::LDB1;     // [RB*N1][LDA1]: xst rows (rb, i1)
-  __nv_bfloat16* s_a2 = s_a1 + RB * N1 * F::LDA1;  // [RB*N2][LDA2]: bs rows (rb, k2)
-  float* s_twr = reinterpret_cast<float*>(s_a2 + RB * N2 * F::LDA2);  // [N1][N2]
-  float* s_twi = s_twr + N1 * N2;
-  float* s_pv = s_twi + N1 * N2;
-  int* s_pk = reinterpret_cast<int*>(s_pv + F::TASKS2);
+  __nv_bfloat16* s_w1r = reinterpret_cast<__nv_bfloat16*>(smem);  // stage 1: M(N2)
+  __nv_bfloat16* s_w1i = s_w1r + F::kT1;
+  __nv_bfloat16* s_w2r = s_w1i + F::kT1;  // stage 2: M1R
+  __nv_bfloat16* s_w2i = s_w2r + F::kT2;
+  float* s_twr = reinterpret_cast<float*>(s_w2i + F::kT2);
+  float* s_twi = s_twr + F::kTw;
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  unsigned char* mine = reinterpret_cast<unsigned char*>(s_twi + F::kTw) + wg * F::kWgBytes;
+  float* stage = reinterpret_cast<float*>(mine);
+  // xst [(rb, i1)][i2] (real plane, then imaginary) until stage 1 has read
+  // it, then bs [(rb, k2)][i1] in its place
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(stage + 2 * F::kPlane);
+  float* s_pv = reinterpret_cast<float*>(s_x + 2 * F::kA);
+  int* s_pk = reinterpret_cast<int*>(s_pv + F::kSlots);
 
-  stage_table<N2, N2, F::LDB2>(w2r, s_b2r);
-  stage_table<N2, N2, F::LDB2>(w2i, s_b2i);
-  stage_table<N1, N1, F::LDB1>(w1r, s_b1r);
-  stage_table<N1, N1, F::LDB1>(w1i, s_b1i);
-  for (int i = threadIdx.x; i < N1 * N2; i += kThreads) {
-    s_twr[i] = twr[i];
-    s_twi[i] = twi[i];
+  // block b takes a contiguous run of tiles (frames that share a rotation
+  // row stay on one SM); its warpgroups alternate through it
+  const long long tiles = (rows + RB - 1) / RB;
+  const long long per = (tiles + gridDim.x - 1) / gridDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * per;
+  const long long end = first + per < tiles ? first + per : tiles;
+  long long tile = first + wg;
+  // the first tile's rows in flight, then the tables and twiddles, as bytes
+  if (tile < end) copy_frames<N1, N2>(yr, yi, rows, tile, stage, tid);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < F::kT1 / 8; i += WGS * kWgThreads) {
+    reinterpret_cast<uint4*>(s_w1r)[i] = __ldg(reinterpret_cast<const uint4*>(w1r) + i);
+    reinterpret_cast<uint4*>(s_w1i)[i] = __ldg(reinterpret_cast<const uint4*>(w1i) + i);
   }
+  for (int i = threadIdx.x; i < F::kT2 / 8; i += WGS * kWgThreads) {
+    reinterpret_cast<uint4*>(s_w2r)[i] = __ldg(reinterpret_cast<const uint4*>(w2r) + i);
+    reinterpret_cast<uint4*>(s_w2i)[i] = __ldg(reinterpret_cast<const uint4*>(w2i) + i);
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = threadIdx.x; i < F::kTw / 4; i += WGS * kWgThreads) {
+    reinterpret_cast<float4*>(s_twr)[i] = __ldg(reinterpret_cast<const float4*>(twr) + i);
+    reinterpret_cast<float4*>(s_twi)[i] = __ldg(reinterpret_cast<const float4*>(twi) + i);
+  }
+  fence_proxy_async();
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  constexpr int kQuads = RB * N / 4;
-  constexpr int kIters = (kQuads + kThreads - 1) / kThreads;
-  const long long tiles = (rows + RB - 1) / RB;
+  const uint32_t x_addr = smem_u32(s_x);
+  const uint32_t w1r_addr = smem_u32(s_w1r), w1i_addr = smem_u32(s_w1i);
+  const uint32_t w2r_addr = smem_u32(s_w2r), w2i_addr = smem_u32(s_w2i);
+  // the xst rows this thread derotates: M1 / 128 whole rows, or at M1 = 64
+  // every other k group of row tid % 64
+  constexpr int kXRows = M1 >= kWgThreads ? M1 / kWgThreads : 1;
+  constexpr int kKgStep = M1 >= kWgThreads ? 1 : kWgThreads / M1;
 
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (; tile < end; tile += WGS) {
+    // this tile's rows have landed (every thread's copies of the warpgroup)
+    cp_async_wait_all();
+    wg_barrier(wg);
     const long long row0 = tile * RB;
-    // 1. load, derotate, round; sample i = i2*N1 + i1 goes to xst[i1][i2]
-    float4 fr[kIters], fi[kIters];
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int q = threadIdx.x + it * kThreads;
-      if (q < kQuads)
-        load_samples<N, kRot>(yr, yi, cr, si, row0 + q / (N / 4), rows, rows_per_rot,
-                              (q % (N / 4)) * 4, fr[it], fi[it]);
-    }
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int q = threadIdx.x + it * kThreads;
-      if (q < kQuads) {
-        const int rb = q / (N / 4), i = (q % (N / 4)) * 4;
-        const int i2 = i / N1, i1 = i % N1;
-        __nv_bfloat16* p = s_a1 + (rb * N1 + i1) * F::LDA1 + i2;
-        const float re[4] = {fr[it].x, fr[it].y, fr[it].z, fr[it].w};
-        const float im[4] = {fi[it].x, fi[it].y, fi[it].z, fi[it].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[e * F::LDA1] = __float2bfloat16_rn(re[e]);
-          p[e * F::LDA1 + N2] = __float2bfloat16_rn(im[e]);
+    if (kRot && tile + WGS < end) {  // the next tile's new planes, into L1 meanwhile
+      const long long cur = rot_of(row0 + RB - 1, rows, rows_per_rot);
+      const long long nf = rot_of(row0 + WGS * RB, rows, rows_per_rot);
+      const long long nl = rot_of(row0 + WGS * RB + RB - 1, rows, rows_per_rot);
+      for (int l = tid; l < N / 32; l += kWgThreads) {
+        if (nf != cur) {
+          prefetch_plane<N>(cr + nf * N, l);
+          prefetch_plane<N>(si + nf * N, l);
+        }
+        if (nl != nf) {
+          prefetch_plane<N>(cr + nl * N, l);
+          prefetch_plane<N>(si + nl * N, l);
         }
       }
     }
-    __syncthreads();
 
-    // 2. stage 1, a[(rb, i1)][k2], twiddled in f32 and written transposed
-    //    as bs[(rb, k2)][i1 | N1 + i1] in bf16
-    for (int task = warp; task < F::TASKS1; task += kWarps) {
-      const int mt = task / F::NCH1, ch = task % F::NCH1;
-      float acc_r[F::CH1 / 8][4], acc_i[F::CH1 / 8][4];
-      complex_mma<N2, F::CH1 / 8, F::LDA1, F::LDB2>(s_a1, s_b2r, s_b2i, mt * 16, ch * F::CH1, g,
-                                                    t, acc_r, acc_i);
+    // 1. derotate and round: sample i = i2 N1 + i1 of frame row rb goes to
+    //    xst[(rb, i1)][i2], eight i2 (one 16-byte core-matrix row) at a
+    //    time; the lanes of a warp take consecutive rows
 #pragma unroll
-      for (int j = 0; j < F::CH1 / 8; ++j)
+    for (int xr = 0; xr < kXRows; ++xr) {
+      const int xrow = M1 >= kWgThreads ? tid + kWgThreads * xr : tid % M1;
+      const int xrb = xrow / N1, xi1 = xrow % N1;
+      const float* pr = stage + xrb * F::LDS + xi1;
+      const float* pc = nullptr;
+      const float* ps = nullptr;
+      if (kRot) {
+        const long long rot = rot_of(row0 + xrb, rows, rows_per_rot);
+        pc = cr + rot * N + xi1;
+        ps = si + rot * N + xi1;
+      }
+#pragma unroll
+      for (int kg = M1 >= kWgThreads ? 0 : tid / M1; kg < N2 / 8; kg += kKgStep) {
+        float fr[8], fi[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = (8 * kg + e) * N1;
+          fr[e] = pr[i];
+          fi[e] = pr[i + F::kPlane];
+          if (kRot) derotate(fr[e], fi[e], __ldg(pc + i), __ldg(ps + i), fr[e], fi[e]);
+        }
+        __nv_bfloat16* px = s_x + core_offset<N2>(xrow, 8 * kg);
+        *reinterpret_cast<uint4*>(px) =
+            make_uint4(pack_bf16(fr[0], fr[1]), pack_bf16(fr[2], fr[3]),
+                       pack_bf16(fr[4], fr[5]), pack_bf16(fr[6], fr[7]));
+        *reinterpret_cast<uint4*>(px + F::kA) =
+            make_uint4(pack_bf16(fi[0], fi[1]), pack_bf16(fi[2], fi[3]),
+                       pack_bf16(fi[4], fi[5]), pack_bf16(fi[6], fi[7]));
+      }
+    }
+    fence_proxy_async();
+    wg_barrier(wg);
+    // the stage is free: the next tile's rows come in under the rest of
+    // this tile (and the other warpgroups' work)
+    if (tile + WGS < end) copy_frames<N1, N2>(yr, yi, rows, tile + WGS, stage, tid);
+    cp_async_commit();
+
+    // 2. stage 1: a[(rb, i1)][k2] = xst @ M(N2), one m64 chain per 64 rows,
+    //    four products a k-step (the first of each accumulator ignores what
+    //    the registers hold)
+    float acc_r[F::MT][N2 / 2], acc_i[F::MT][N2 / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < F::MT; ++m)
+#pragma unroll
+      for (int s = 0; s < N2 / 16; ++s) {
+        const uint32_t a0 = 128 * N2 * m + 256 * s;  // 8 row groups of 16 N2 bytes
+        const uint64_t ar = smem_desc(x_addr + a0, 128, 16 * N2);
+        const uint64_t ai = smem_desc(x_addr + 2 * F::kA + a0, 128, 16 * N2);
+        const uint64_t wr = smem_desc(w1r_addr + 256 * s, 128, 16 * N2);
+        const uint64_t wi = smem_desc(w1i_addr + 256 * s, 128, 16 * N2);
+        wgmma_ss<N2, 1>(acc_r[m], ar, wr, s > 0);  // xr @ Wr
+        wgmma_ss<N2, 1>(acc_i[m], ar, wi, s > 0);  // xr @ Wi
+        wgmma_ss<N2, -1>(acc_r[m], ai, wi, 1);  // - xi @ Wi
+        wgmma_ss<N2, 1>(acc_i[m], ai, wr, 1);   // xi @ Wr
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wg_barrier(wg);  // every warp's share of stage 1 has read xst
+
+    // 3. the twiddle in f32, op by op, rounded to bf16 into bs[(rb, k2)][i1]
+    //    (row r = 64 m + 16 warp + g + 8 (c >> 1) of stage 1 is (rb, i1))
+#pragma unroll
+    for (int j = 0; j < N2 / 8; ++j) {
+      // this thread's four twiddles of n-tile j (its rows' i1 are the same
+      // in every chain and tile)
+      const int tw = ((warp * (N2 / 8) + j) * 32 + lane) * 4;
+      const float4 tr = *reinterpret_cast<const float4*>(s_twr + tw);
+      const float4 ti = *reinterpret_cast<const float4*>(s_twi + tw);
+      const float twr4[4] = {tr.x, tr.y, tr.z, tr.w}, twi4[4] = {ti.x, ti.y, ti.z, ti.w};
+#pragma unroll
+      for (int m = 0; m < F::MT; ++m)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int r = mt * 16 + g + 8 * (c >> 1);
-          const int rb = r / N1, i1 = r % N1;
-          const int k2 = ch * F::CH1 + 8 * j + 2 * t + (c & 1);
-          const float wr_ = s_twr[i1 * N2 + k2], wi_ = s_twi[i1 * N2 + k2];
+          const int r = kWgRows * m + 16 * warp + g + 8 * (c >> 1);
+          const int k2 = 8 * j + 2 * t + (c & 1);
           float br, bi;
-          derotate(acc_r[j][c], acc_i[j][c], wr_, wi_, br, bi);
-          __nv_bfloat16* p = s_a2 + (rb * N2 + k2) * F::LDA2 + i1;
-          p[0] = __float2bfloat16_rn(br);
-          p[N1] = __float2bfloat16_rn(bi);
+          derotate(acc_r[m][4 * j + c], acc_i[m][4 * j + c], twr4[c], twi4[c], br, bi);
+          const int off = core_offset<N1>((r / N1) * N2 + k2, r % N1);
+          s_x[off] = __float2bfloat16_rn(br);
+          s_x[off + F::kA] = __float2bfloat16_rn(bi);
         }
     }
-    __syncthreads();
+    fence_proxy_async();
+    wg_barrier(wg);
 
-    // 3. stage 2, c[(rb, k2)][k1]; |.|^2 and the best natural bin
-    //    k1*N2 + k2 of each 16-row x CH2-bin task (one frame row per task)
-    for (int task = warp; task < F::TASKS2; task += kWarps) {
-      const int mt = task / F::NCH2, ch = task % F::NCH2;
-      float acc_r[F::CH2 / 8][4], acc_i[F::CH2 / 8][4];
-      complex_mma<N1, F::CH2 / 8, F::LDA2, F::LDB1>(s_a2, s_b1r, s_b1i, mt * 16, ch * F::CH2, g,
-                                                    t, acc_r, acc_i);
+    // 4. stage 2: c[(rb, k2)][k1] = bs @ M1R, one m64 chain per 64 rows
+    float acc2_r[F::CH2][N1 / 2], acc2_i[F::CH2][N1 / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < F::CH2; ++h)
+#pragma unroll
+      for (int s = 0; s < N1 / 16; ++s) {
+        const uint32_t a0 = 128 * N1 * h + 256 * s;  // 8 row groups of 16 N1 bytes
+        const uint64_t ar = smem_desc(x_addr + a0, 128, 16 * N1);
+        const uint64_t ai = smem_desc(x_addr + 2 * F::kA + a0, 128, 16 * N1);
+        const uint64_t wr = smem_desc(w2r_addr + 256 * s, 128, 16 * N1);
+        const uint64_t wi = smem_desc(w2i_addr + 256 * s, 128, 16 * N1);
+        wgmma_ss<N1, 1>(acc2_r[h], ar, wr, s > 0);  // br @ Wr
+        wgmma_ss<N1, 1>(acc2_i[h], ar, wi, s > 0);  // br @ Wi
+        wgmma_ss<N1, -1>(acc2_r[h], ai, wi, 1);  // - bi @ Wi
+        wgmma_ss<N1, 1>(acc2_i[h], ai, wr, 1);   // bi @ Wr
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // 5. |.|^2 and the first maximum over natural bins k1 N2 + k2: a thread
+    //    meets its bins in increasing order (k1 = 8j + 2t + e, then row k2
+    //    before k2 + 8), so a strict > keeps the first; a warp's 16 rows of a
+    //    chain lie in one frame row, so then the warp's (shuffles), then the
+    //    frame row's over its warps' slots
+#pragma unroll
+    for (int h = 0; h < F::CH2; ++h) {
+      const int k2 = (kWgRows * h + 16 * warp + g) % N2;
       float bv = neg_inf();
       int bk = N;
 #pragma unroll
-      for (int j = 0; j < F::CH2 / 8; ++j)
+      for (int j = 0; j < N1 / 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k2 = (mt * 16 + g + 8 * (c >> 1)) % N2;
-          const int k1 = ch * F::CH2 + 8 * j + 2 * t + (c & 1);
-          take_max(bv, bk, mag2(acc_r[j][c], acc_i[j][c]), k1 * N2 + k2);
-        }
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int c = 2 * hh + e;
+            const float v = mag2(acc2_r[h][4 * j + c], acc2_i[h][4 * j + c]);
+            if (v > bv) {
+              bv = v;
+              bk = (8 * j + 2 * t + e) * N2 + k2 + 8 * hh;
+            }
+          }
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
         const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
@@ -807,22 +1054,19 @@ bf16_decide_fourstep(const float* __restrict__ yr, const float* __restrict__ yi,
         take_max(bv, bk, ov, ok);
       }
       if (lane == 0) {
-        s_pv[task] = bv;  // task = rb * PARTS + part
-        s_pk[task] = bk;
+        s_pv[4 * h + warp] = bv;  // slot 4h + warp holds stage-2 rows from 16 (4h + warp)
+        s_pk[4 * h + warp] = bk;
       }
     }
-    __syncthreads();
-
-    // 4. combine each row's parts
-    for (int rb = threadIdx.x; rb < RB; rb += kThreads) {
-      const long long row = row0 + rb;
-      if (row >= rows) break;
-      float v = s_pv[rb * F::PARTS];
-      int k = s_pk[rb * F::PARTS];
-      for (int q = 1; q < F::PARTS; ++q)
-        take_max(v, k, s_pv[rb * F::PARTS + q], s_pk[rb * F::PARTS + q]);
-      out[row] = k;
-      if (peak != nullptr) peak[row] = v;
+    wg_barrier(wg);
+    if (tid < RB && row0 + tid < rows) {
+      constexpr int kPer = N2 / 16;  // slots per frame row
+      float v = s_pv[tid * kPer];
+      int k = s_pk[tid * kPer];
+#pragma unroll
+      for (int q = 1; q < kPer; ++q) take_max(v, k, s_pv[tid * kPer + q], s_pk[tid * kPer + q]);
+      out[row0 + tid] = k;
+      if (peak != nullptr) peak[row0 + tid] = v;
     }
   }
 }
@@ -897,17 +1141,19 @@ int launch_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N1, int N2, int RB, bool kRot>
+template <int N1, int N2, bool kRot>
 int launch_fourstep(const Args& a) {
+  using F = Fs<N1, N2>;
   static std::atomic<long long> cache[64];
-  auto kernel = bf16_decide_fourstep<N1, N2, RB, kRot>;
-  constexpr size_t smem = FourStep<N1, N2, RB>::kSmem;
+  auto kernel = bf16_decide_fourstep<N1, N2, kRot>;
+  constexpr int threads = F::WGS * kWgThreads;
   long long resident = 0;
-  cudaError_t err = resident_blocks(kernel, kThreads, smem, cache, &resident);
+  cudaError_t err = resident_blocks(kernel, threads, F::kSmem, cache, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (a.rows + RB - 1) / RB;
-  const long long blocks = tiles < resident ? tiles : resident;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
+  const long long tiles = (a.rows + F::RB - 1) / F::RB;
+  const long long groups = (tiles + F::WGS - 1) / F::WGS;
+  const long long blocks = groups < resident ? groups : resident;
+  kernel<<<static_cast<unsigned>(blocks), threads, F::kSmem, a.stream>>>(
       a.yr, a.yi, a.cr, a.si, a.rows, a.rows_per_rot, a.wa_r, a.wa_i, a.wb_r, a.wb_i, a.twr,
       a.twi, a.out, a.peak);
   return static_cast<int>(cudaGetLastError());
@@ -922,13 +1168,12 @@ int dispatch(int n, const Args& a) {
     case 32: return launch_wgmma<32, kRot>(a);
     case 64: return launch_wgmma<64, kRot>(a);
     case 128: return launch_wgmma<128, kRot>(a);
-    // (n1, n2) of the four-step split (ops/fft.py::_split); rows per tile
-    // chosen so that each stage has at least one task per warp
-    case 256: return launch_fourstep<16, 16, 8, kRot>(a);
-    case 512: return launch_fourstep<16, 32, 8, kRot>(a);
-    case 1024: return launch_fourstep<32, 32, 4, kRot>(a);
-    case 2048: return launch_fourstep<32, 64, 2, kRot>(a);
-    case 4096: return launch_fourstep<64, 64, 1, kRot>(a);
+    // (n1, n2) of the four-step split (ops/fft.py::_split)
+    case 256: return launch_fourstep<16, 16, kRot>(a);
+    case 512: return launch_fourstep<16, 32, kRot>(a);
+    case 1024: return launch_fourstep<32, 32, kRot>(a);
+    case 2048: return launch_fourstep<32, 64, kRot>(a);
+    case 4096: return launch_fourstep<64, 64, kRot>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -940,9 +1185,10 @@ int dispatch(int n, const Args& a) {
 // r / rows_per_rot. wa_r, wa_i: the bf16 DFT tables Wr, Wi transposed,
 // [bin][k] — for n = 32..128 [n][n] in the wgmma layout
 // (ops/bf16_decide.py::wgmma_layout), for n = 4..16 [max(n, 8)][max(n, 16)]
-// zero-padded, for n > 128
-// stage 1's [n2][n2]; wb_r, wb_i: stage 2's [n1][n1] (null for n <= 128);
-// twr, twi: the [n1][n2] f32 twiddles (null for n <= 128). out: [rows]
+// zero-padded, for n > 128 stage 1's [n2][n2] in the layout without the k
+// permutation; wb_r, wb_i: stage 2's [n1][n1] in it (null for n <= 128);
+// twr, twi: the f32 twiddles, [64 n2] in the order of
+// ops/bf16_decide.py::fourstep_twiddles (null for n <= 128). out: [rows]
 // int32 bins; peak: [rows] f32 peak |.|^2 or null. Launches on `stream`
 // and returns the CUDA error code (0 on success); does not synchronise.
 extern "C" int lora_bf16_decide(const float* yr, const float* yi, const float* cr,

@@ -40,14 +40,23 @@ LAUNCHES = 0
 # N the kernel takes: every power of two of LoraParams' SF2-12
 KERNEL_N = tuple(1 << sf for sf in range(2, 13))
 # N served by the wgmma design (A from registers, tables in the layout of
-# wgmma_layout); the others run mma.sync (N <= 16 direct, N > 128 four-step)
+# wgmma_layout), and by the four-step on wgmma (both operands from shared
+# memory); N <= 16 runs mma.sync
 WGMMA_N = (32, 64, 128)
+FOURSTEP_N = (256, 512, 1024, 2048, 4096)
+# the four-step's tiling (Fs<n1, n2> in csrc/bf16_decide.cu): N -> (frame
+# rows a tile, warpgroups a block, blocks an SM); a tile's stage-1 rows
+# (rb, i1) fill one m64 tile, four at N = 256
+FOURSTEP_TILE = {256: (16, 2, 2), 512: (4, 2, 2), 1024: (2, 2, 2), 2048: (2, 3, 1),
+                 4096: (1, 3, 1)}
 
 
 def design(n: int) -> str:
-    """The kernel design that serves N: ``"wgmma"`` (N = 32, 64, 128) or
-    ``"mma.sync"`` (N <= 16 and the four-step above 128)."""
-    return "wgmma" if n in WGMMA_N else "mma.sync"
+    """The kernel design that serves N: ``"wgmma"`` (N = 32, 64, 128),
+    ``"wgmma-fourstep"`` (N = 256..4096) or ``"mma.sync"`` (N <= 16)."""
+    if n in WGMMA_N:
+        return "wgmma"
+    return "wgmma-fourstep" if n in FOURSTEP_N else "mma.sync"
 
 
 def near_tie(n: int) -> float:
@@ -109,26 +118,50 @@ def _wgmma_columns(k: int) -> np.ndarray:
     return (np.arange(k) // 16) * 16 + 4 * ((p % 8) // 2) + 2 * (p // 8) + p % 2
 
 
-def wgmma_layout(wt: np.ndarray) -> np.ndarray:
-    """A [bins, k] table (``Wr.T`` or ``Wi.T``) in the N = 32..128 kernel's
-    shared-memory order, flat: k permuted by :func:`_wgmma_columns`, then
-    8 x 8 core matrices of 8 bins x 8 k (row-major, 128 bytes of bf16),
-    core matrix (b, c) of 8-bin group b and 8-deep k group c at position
-    ``b * (k / 8) + c``: the canonical no-swizzle K-major layout of a wgmma
-    B operand, with LBO = 128 bytes (k groups) and SBO = 16 k bytes (bin
-    groups)."""
+def wgmma_layout(wt: np.ndarray, permute: bool = True) -> np.ndarray:
+    """A [bins, k] table (``Wr.T`` or ``Wi.T``) in the wgmma kernels'
+    shared-memory order, flat: k permuted by :func:`_wgmma_columns` (the
+    N = 32..128 kernel, whose A comes from registers; not with
+    ``permute=False``, the four-step's), then 8 x 8 core matrices of 8 bins
+    x 8 k (row-major, 128 bytes of bf16), core matrix (b, c) of 8-bin group
+    b and 8-deep k group c at position ``b * (k / 8) + c``: the canonical
+    no-swizzle K-major layout of a wgmma operand, with LBO = 128 bytes (k
+    groups) and SBO = 16 k bytes (bin groups)."""
     bins, k = wt.shape
-    slotted = wt[:, _wgmma_columns(k)]
+    slotted = wt[:, _wgmma_columns(k)] if permute else wt
     return np.ascontiguousarray(
         slotted.reshape(bins // 8, 8, k // 8, 8).transpose(0, 2, 1, 3).reshape(-1))
 
 
-def wgmma_unlayout(flat: np.ndarray, bins: int, k: int) -> np.ndarray:
+def wgmma_unlayout(flat: np.ndarray, bins: int, k: int, permute: bool = True) -> np.ndarray:
     """The inverse of :func:`wgmma_layout`: the [bins, k] table back."""
     slotted = np.asarray(flat).reshape(bins // 8, k // 8, 8, 8).transpose(0, 2, 1, 3)
+    if not permute:
+        return np.ascontiguousarray(slotted.reshape(bins, k))
     wt = np.empty((bins, k), slotted.dtype)
     wt[:, _wgmma_columns(k)] = slotted.reshape(bins, k)
     return wt
+
+
+def _fragment_index(n2: int):
+    """(row, k2) of each entry of the four-step's twiddle planes in the
+    kernel's order (warp w, n-tile j, lane, c), flat: the stage-1
+    accumulator element c of n-tile j of lane (g, t) of warp w is tile row
+    ``16 w + g + 8 (c // 2)``, bin ``k2 = 8 j + 2 t + c % 2``."""
+    w, j, lane, c = np.meshgrid(np.arange(4), np.arange(n2 // 8), np.arange(32), np.arange(4),
+                                indexing="ij")
+    row = 16 * w + lane // 4 + 8 * (c // 2)
+    k2 = 8 * j + 2 * (lane % 4) + c % 2
+    return row.reshape(-1), k2.reshape(-1)
+
+
+def fourstep_twiddles(tw: np.ndarray) -> np.ndarray:
+    """A [n1, n2] float32 twiddle plane in the four-step kernel's fragment
+    order, flat [64 * n2]: a thread reads its four accumulators' twiddles
+    of an n-tile as one float4 (tile row r is (rb, i1 = r % n1))."""
+    n1, n2 = tw.shape
+    row, k2 = _fragment_index(n2)
+    return np.ascontiguousarray(tw[row % n1, k2], np.float32)
 
 
 @functools.lru_cache(maxsize=32)
@@ -136,9 +169,11 @@ def _kernel_tables(n: int, device: torch.device):
     """The kernel's constants on ``device``: bf16 DFT tables rounded by torch
     from the port's own float32 numpy builders (the same bits the plain
     version's ``_mm`` rounds to), and for N > 128 the stage-2 tables and the
-    float32 [n1, n2] twiddles. ``(wa_r, wa_i, wb_r, wb_i, twr, twi)``, None
-    where the N <= 128 kernel takes nothing. At N in :data:`WGMMA_N` the
-    tables are flat [N * N] in :func:`wgmma_layout`'s order."""
+    float32 twiddles. ``(wa_r, wa_i, wb_r, wb_i, twr, twi)``, None where the
+    N <= 128 kernel takes nothing. At N in :data:`WGMMA_N` the tables are
+    flat [N * N] in :func:`wgmma_layout`'s order; at N > 128 flat [n2 * n2]
+    (stage 1) and [n1 * n1] (stage 2) in ``wgmma_layout(permute=False)``'s,
+    and the twiddles flat [64 * n2] in :func:`fourstep_twiddles`'."""
     def bf16(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).to(device)
 
@@ -149,9 +184,9 @@ def _kernel_tables(n: int, device: torch.device):
         wa = _pair_tables(planar._combined_dft_mat(n), n, max(n, 16), max(n, 8))
         return bf16(wa[0]), bf16(wa[1]), None, None, None, None
     m2, m1r, twr, twi, n1, n2 = planar._scrambled_mats(n)
-    wa = _pair_tables(m2, n2, n2, n2)
-    wb = _pair_tables(m1r, n1, n1, n1)
-    tw = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in (twr, twi)]
+    wa = [wgmma_layout(t, permute=False) for t in _pair_tables(m2, n2, n2, n2)]
+    wb = [wgmma_layout(t, permute=False) for t in _pair_tables(m1r, n1, n1, n1)]
+    tw = [torch.from_numpy(fourstep_twiddles(a)).to(device) for a in (twr, twi)]
     return bf16(wa[0]), bf16(wa[1]), bf16(wb[0]), bf16(wb[1]), tw[0], tw[1]
 
 

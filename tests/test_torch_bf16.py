@@ -31,6 +31,7 @@ from lora_phy_tpu.ops import planar as jplanar
 from lora_phy_tpu.utils.params import LoraParams, Window
 from lora_phy_tpu_torch.models import modem as tmodem
 from lora_phy_tpu_torch.ops import bf16_decide as tbf16
+from lora_phy_tpu_torch.ops import fft as tfft
 from lora_phy_tpu_torch.ops import planar as tplanar
 
 BF16 = torch.bfloat16
@@ -283,11 +284,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert tbf16.LAUNCHES == launches
 
 
+def fourstep_untwiddles(flat, n1, n2):
+    """The inverse of bf16_decide.fourstep_twiddles: the [n1, n2] plane back,
+    every entry written, and every copy (the tile's other frame rows) equal
+    to it."""
+    row, k2 = tbf16._fragment_index(n2)
+    tw = np.full((n1, n2), np.nan, np.float32)
+    flat = np.asarray(flat)
+    tw[row % n1, k2] = flat
+    np.testing.assert_array_equal(tw[row % n1, k2], flat)
+    return tw
+
+
 def test_kernel_tables_are_the_plain_versions_bits():
     """The kernel's bf16 tables are torch's rounding of the port's float32
     builders, transposed and zero-padded (N < 16), so kernel and plain
     version multiply the same bits; the twiddles are the float32 ones.
-    (N = 32..128: test_wgmma_tables_are_the_plain_versions_bits.)"""
+    (N = 32..128: test_wgmma_tables_are_the_plain_versions_bits; N > 128,
+    in the four-step's layouts: test_fourstep_tables_are_the_plain_versions_bits.)"""
     for n in (4, 8, 16):
         wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
         m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
@@ -298,11 +312,50 @@ def test_kernel_tables_are_the_plain_versions_bits():
         assert wbr is None and twr is None
     m2, m1r, ftwr, ftwi, n1, n2 = tplanar._scrambled_mats(4096)
     wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(4096, torch.device("cpu"))
-    torch.testing.assert_close(wr, torch.from_numpy(m2[:n2, :n2].T.copy()).to(BF16),
+
+    def table(t, k):  # the kernel's flat table back to [bin][k]
+        return torch.from_numpy(tbf16.wgmma_unlayout(nn(t.view(torch.int16)), k, k,
+                                                     permute=False)).view(BF16)
+
+    torch.testing.assert_close(table(wr, n2), torch.from_numpy(m2[:n2, :n2].T.copy()).to(BF16),
                                rtol=0, atol=0)
-    torch.testing.assert_close(wbi, torch.from_numpy(m1r[:n1, n1:].T.copy()).to(BF16),
+    torch.testing.assert_close(table(wbi, n1),
+                               torch.from_numpy(m1r[:n1, n1:].T.copy()).to(BF16),
                                rtol=0, atol=0)
-    np.testing.assert_array_equal(nn(twi), ftwi)
+    np.testing.assert_array_equal(fourstep_untwiddles(nn(twi), n1, n2), ftwi)
+
+
+@pytest.mark.parametrize("n", tbf16.FOURSTEP_N)
+def test_fourstep_tables_are_the_plain_versions_bits(n):
+    """At N = 256..4096 the kernel's four stage tables are flat [n2 * n2] /
+    [n1 * n1] bf16 in the no-swizzle K-major core-matrix layout (no k
+    permutation): wgmma_unlayout takes them back to exactly the bits of
+    _pair_tables(M(n2)) and _pair_tables(M1R), and core matrices sit where
+    the kernel's descriptors look (k-step s 256 bytes in, 8-bin groups 16 k
+    bytes apart). The twiddles are the plain version's float32 [n1, n2],
+    in the fragment order fourstep_untwiddles inverts, with every copy
+    equal; element (w, j, lane, c) is tile row 16 w + g + 8 (c // 2), bin
+    8 j + 2 t + c % 2."""
+    m2, m1r, ftwr, ftwi, n1, n2 = tplanar._scrambled_mats(n)
+    assert (n1, n2) == tfft._split(n) and 64 % n1 == 0
+    w1r, w1i, w2r, w2i, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
+    assert w1r.shape == (n2 * n2,) and w2r.shape == (n1 * n1,) and w1r.dtype == BF16
+    assert twr.shape == (64 * n2,) and twr.dtype == torch.float32
+    for (got_r, got_i), m, k in (((w1r, w1i), m2, n2), ((w2r, w2i), m1r, n1)):
+        mb = torch.from_numpy(m).to(BF16)
+        for got, want in ((got_r, mb[:k, :k].T), (got_i, mb[:k, k:].T)):
+            bits = nn(got.view(torch.int16))
+            want = nn(want.contiguous().view(torch.int16))
+            np.testing.assert_array_equal(tbf16.wgmma_unlayout(bits, k, k, permute=False), want)
+            for b, q in ((0, 0), (7, 15), (8, k // 2), (k - 1, k - 1), (13, 9)):
+                pos = (b // 8) * 8 * k + (q // 16) * 128 + ((q % 16) // 8) * 64 + (b % 8) * 8 + q % 8
+                assert bits[pos] == want[b, q]
+    for got, want in ((twr, ftwr), (twi, ftwi)):
+        np.testing.assert_array_equal(fourstep_untwiddles(nn(got), n1, n2), want)
+    flat = nn(twr)
+    for w, j, lane, c in ((0, 0, 0, 0), (3, n2 // 8 - 1, 31, 3), (1, 1, 6, 2)):
+        row, k2 = 16 * w + lane // 4 + 8 * (c // 2), 8 * j + 2 * (lane % 4) + c % 2
+        assert flat[((w * (n2 // 8) + j) * 32 + lane) * 4 + c] == ftwr[row % n1, k2]
 
 
 @pytest.mark.parametrize("n", tbf16.WGMMA_N)
@@ -331,9 +384,10 @@ def test_wgmma_tables_are_the_plain_versions_bits(n):
 
 
 def test_chip_smoke_ablations_find_their_anchors():
-    """Each of chip_smoke.py's copies of bf16_decide.cu (phase 19 (b): where
-    the wgmma kernel's time goes) finds every statement it replaces exactly
-    once in the kernel's source, and changes it."""
+    """Each of chip_smoke.py's copies of bf16_decide.cu (phase 19 (b) and
+    (c): where the N = 128 wgmma kernel's and the four-step's time goes)
+    finds every statement it replaces exactly once in the kernel's source,
+    and changes it."""
     import importlib.util
     import pathlib
 
@@ -342,16 +396,33 @@ def test_chip_smoke_ablations_find_their_anchors():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     shipped = smoke.bf16_ablation_source([])
-    for name, edits in smoke.BF16_ABLATIONS.items():
-        src = smoke.bf16_ablation_source(edits)
-        assert src != shipped, name
-        assert all(old not in src for old, _ in edits), name
+    sets = (smoke.BF16_ABLATIONS, smoke.FOURSTEP_ABLATIONS)
+    assert [smoke.BF16_PATH_ABLATIONS[sf] for sf in (7, 12)] == list(sets)
+    for ablations in sets:
+        for name, edits in ablations.items():
+            src = smoke.bf16_ablation_source(edits)
+            assert src != shipped, name
+            assert all(old not in src for old, _ in edits), name
 
 
 def test_kernel_design_per_n():
-    """N = 32, 64, 128 run the wgmma design, every other N mma.sync."""
+    """N = 32, 64, 128 run the wgmma design, N = 256..4096 the four-step on
+    wgmma, N <= 16 mma.sync."""
     assert [tbf16.design(n) for n in tbf16.KERNEL_N] == (
-        ["mma.sync"] * 3 + ["wgmma"] * 3 + ["mma.sync"] * 5)
+        ["mma.sync"] * 3 + ["wgmma"] * 3 + ["wgmma-fourstep"] * 5)
+
+
+@pytest.mark.parametrize("n", tbf16.FOURSTEP_N)
+def test_fourstep_tile_is_whole_m64_tiles(n):
+    """FOURSTEP_TILE (the kernel's Fs<n1, n2>): a tile's stage-1 rows
+    (rb, i1) are one m64 tile (four at N = 256) and its stage-2 rows
+    (rb, k2) one to four m64 chains; a block's warpgroups, times the blocks
+    an SM holds, fit the SM's 2048 threads."""
+    rb, warpgroups, blocks = tbf16.FOURSTEP_TILE[n]
+    n1, n2 = tfft._split(n)
+    assert rb * n1 == (256 if n == 256 else 64)
+    assert rb * n2 % 64 == 0 and 1 <= rb * n2 // 64 <= 4
+    assert 128 * warpgroups * blocks <= 2048
 
 
 @pytest.mark.gpu
@@ -363,11 +434,21 @@ def test_cuda_kernel_matches_plain_version(sf):
     |.|^2 lie within bf16_decide.near_tie relative (the sums' order), peaks
     within it too; one launch per call; demodulate_planar at
     precision='bf16' decodes through it. Row counts 63, 64, 65 and 4097
-    sit at the edges of the wgmma design's 64-row tile."""
+    sit at the edges of the wgmma design's 64-row tile; at N > 128 the
+    four-step's tile of RB frame rows (FOURSTEP_TILE) gets RB - 1, RB + 1
+    (with and without a shared rotation) and 2 RB x (resident warpgroups)
+    + 1 rows, more than the resident warpgroups take in one tile each."""
     dev = cuda_device()
     p = LoraParams(sf=sf)
     n = p.n
-    for b, rows_per_rot in ((1, 1), (7, 3), (301, 5), (63, 1), (32, 2), (13, 5), (4097, 1)):
+    cases = [(1, 1), (7, 3), (301, 5), (63, 1), (32, 2), (13, 5), (4097, 1)]
+    if n > 128:
+        rb, warpgroups, blocks = tbf16.FOURSTEP_TILE[n]
+        resident = warpgroups * blocks * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        cases += [(b, 1) for b in (rb - 1, rb + 1) if b > 0]
+        cases += [(rb + 1, 3), (2 * rb * resident + 1, 1)]
+    for b, rows_per_rot in cases:
         yr, yi, rate, scale = _rotation_case(p, rows_per_rot, b, seed=sf + b)
         yr, yi = tt(yr).reshape(-1, n).to(dev), tt(yi).reshape(-1, n).to(dev)
         cr, si = tplanar._rotation_planes(tt(rate).to(dev), tt(scale).to(dev), tparams(p))
