@@ -169,7 +169,24 @@ Imports no JAX. Phases, one line each (or a few):
    copies, the bs writes, the combine or the derotation); (d) bf16
    against f32 decisions under AWGN at SF7 (393,216 data symbols at 0, -6
    and -9 dB per sample); (e) card against CPU decisions on 16 frames with
-   CFOs at SF7 and SF12.
+   CFOs at SF7 and SF12;
+20. (a) bench.py on the port (lora_phy_tpu_torch.runners.bench.main, in
+   this process) three ways: f32 plain, --fused and --precision=bf16, each
+   line printed: rc 0, every value non-null (its decode and coverage gates
+   raise inside), fused_demod launched once per headline call under
+   --fused and never otherwise, bf16_decide once per headline and SF12
+   call under --precision=bf16 and never otherwise; (b) the block
+   receiver's stage profile at bench shape (tools/torch_profile_block_rx.py:
+   device ms, host ms and launches of each record_function range), the
+   stages' device ms within 10 % of the call's busy time, the untraced
+   stage markers under 2 % of the call; (c) both kernels
+   alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
+   SF7 main path's): fused_demod without and with the Hann window,
+   bf16_decide with and without rotation, on tone rows whose CFO and
+   amplitude the call takes out: bins equal to the plain version's outside
+   near-ties and at the tones' bins; time, bound and share, the plain
+   version's time and the library yardstick's (cuFFT's DFT alone, cuBLAS's
+   bf16 GEMM alone).
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
@@ -318,43 +335,24 @@ def cuda_ms(fn, iters=5, calls=1):
 
 def profile_once(fn, label, calls=5):
     """One torch.profiler window of ``calls`` back-to-back calls of
-    ``fn()`` after a warm-up: per call, the top five device kernels by
-    time and the device busy time (the union of kernel intervals); the
-    idle share is one minus busy over the host wall time of the same
-    window, so it includes the profiler's own host cost (an upper bound)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``fn()`` after a warm-up (``utils/profiling.range_profile``): per call,
+    the top five device kernels by time and the device busy time (the
+    union of kernel intervals); the idle share is one minus busy over the
+    host wall time of the same window, so it includes the profiler's own
+    host cost (an upper bound)."""
+    from lora_phy_tpu_torch.utils.profiling import range_profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
+    # the block receiver's ranges named, so their device-side spans are not
+    # counted as device work
+    prof = range_profile(fn, sync.CIRCULAR_STAGES, calls)
+    if not prof.events:
         print(f"{label}: profiler recorded no device events (not measured)", flush=True)
         return
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy /= calls
-    per_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
     print(f"{label}: profiler, {calls} calls in one window, per call: wall "
-          f"{wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
-          f"{1.0 - busy / 1e3 / wall_ms:.3f}, {len(spans) / calls:.0f} device events",
-          flush=True)
-    for name, us in top:
-        print(f"{label}:   {us / calls / 1e3:.3f} ms  {name[:110]}", flush=True)
+          f"{prof.wall_ms:.3f} ms, device busy {prof.busy_ms:.3f} ms, idle share "
+          f"{prof.idle_share:.3f}, {prof.events:.0f} device events", flush=True)
+    for name, ms in sorted(prof.kernels.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"{label}:   {ms:.3f} ms  {name[:110]}", flush=True)
 
 
 def twin_top2_gap(rows, params, scale_rows):
@@ -537,7 +535,14 @@ def main():
     check(not any(earlier.values()), f"bf16_decide launched on an earlier path: {earlier}")
     print(f"phase 19: bf16_decide launches on each path of phases 3-18: {earlier}", flush=True)
     record19 = phase19_bf16(dev, card)
-    other.update({k: v for k, v in FUSED_BY_PATH.items() if k.startswith("bf16_")})
+    torch.cuda.empty_cache()
+    phase20a_bench(dev, card)
+    torch.cuda.empty_cache()
+    phase20b_stage_profile(dev, card)
+    torch.cuda.empty_cache()
+    record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
+    other.update({k: v for k, v in FUSED_BY_PATH.items()
+                  if k.startswith(("bf16_", "bench_", "block_profile"))})
 
     check("jax" not in sys.modules, "the port imported JAX")
     # every path but the main and coded ones reaches no fused_demod launch
@@ -623,18 +628,10 @@ def phase3_4_main_path(dev, card):
     t_twin = cuda_ms(lambda: fused.fused_detect_rows_reference(*rows, p, scale_rows),
                      calls=10)
     n_rows = rows[0].shape[0]
-    # least time for the same work: per row, the N-point DFT the function
-    # needs (an FFT: 5 N log2 N flops) plus the scale, derotation, |.|^2
-    # and the compare (14 N); each input read once (the rows, start, rate,
-    # scale and the [N] complex twiddle table), the bins written once
+    # least time for the same work (fused_bound)
     n = p.n
-    log2n = n.bit_length() - 1
-    fft_flops = n_rows * 5 * n * log2n
-    flops = fft_flops + n_rows * 14 * n
-    nbytes = 4 * (2 * n_rows * n + 3 * n_rows + 2 * n + n_rows)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    fft_flops = n_rows * 5 * n * (n.bit_length() - 1)
+    bound_ms, bound_by, flops, nbytes = fused_bound(n_rows, n)
     print(f"phase 4: {card}: fused_detect_rows on {n_rows} rows x N={n} with the "
           f"frames' scale: CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e6:.0f} GB/s; "
           f"{fft_flops / t_kernel / 1e9:.2f} TFLOP/s of FFT; one call on an idle card "
@@ -2976,6 +2973,261 @@ def phase19_bf16(dev, card):
             "demod_ms": {"sf7_bf16": sf7["demod_bf16_ms"], "sf7_f32": sf7["demod_f32_ms"],
                          "sf7_fused": sf7["demod_fused_ms"],
                          "sf12_bf16": sf12["demod_bf16_ms"], "sf12_f32": sf12["demod_f32_ms"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: bench.py on the port, the block receiver's stage profile, and
+# both kernels alone at N = 4..64
+# ---------------------------------------------------------------------------
+
+# the bench's three runs: label, arguments
+BENCH_RUNS = (("f32", []), ("fused", ["--fused"]), ("bf16", ["--precision=bf16"]))
+# phase 20 (c): the N of SF2-6 and the samples of every row set (rows x N),
+# the SF7 main path's (8 x 8192 frames x 66 windows x 128)
+SMALL_N, SMALL_N_SAMPLES = (4, 8, 16, 32, 64), 553_648_128
+# symbol windows per frame (one rotation plane each) of phase 20 (c)
+SMALL_N_WINDOWS = 2 * PAYLOAD_LEN + 2
+# phase 2's path at each N of SF2-4 (the only paths that reach either
+# kernel at N < 128)
+SMALL_SF_PATH = {4: "small_sf2", 8: "small_sf3", 16: "small_sf4"}
+
+
+def phase20a_bench(dev, card):
+    """lora_phy_tpu_torch.runners.bench.main three ways in this process:
+    rc 0, one JSON line with every value non-null (its decode and coverage
+    gates raise inside), and each kernel launched once per call of the
+    stages that reach it (counted per stage by the bench, and per run by
+    the counters)."""
+    from lora_phy_tpu_torch.runners import bench
+
+    for label, args in BENCH_RUNS:
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = bench.main(args)
+        finally:                        # the bench's log, also when a stage raised
+            for msg in err.getvalue().splitlines():
+                print(f"phase 20 (a) {label}: {msg}", flush=True)
+        torch.cuda.synchronize()
+        path = f"bench_{label}"
+        fused_n = read_launches(path)
+        bf16_n = BF16_BY_PATH[path]
+        check(rc == 0, f"phase 20 (a) {label}: bench exited {rc}")
+        json_lines = [s for s in out.getvalue().splitlines() if s.startswith("{")]
+        check(len(json_lines) == 1, f"phase 20 (a) {label}: {len(json_lines)} JSON lines")
+        line = json.loads(json_lines[0])
+        nulls = sorted(k for k, v in line.items() if v is None)
+        check(not nulls, f"phase 20 (a) {label}: null values {nulls}")
+        stages = bench.LAST_RUN
+        head, sf12 = stages["headline"], stages["sf12"]
+        want_fused = head["calls"] if label == "fused" else 0
+        want_bf16 = head["calls"] + sf12["calls"] if label == "bf16" else 0
+        check(fused_n == want_fused and head["fused_demod"] == want_fused,
+              f"phase 20 (a) {label}: {fused_n} fused_demod launches ({head['fused_demod']} in "
+              f"{head['calls']} headline calls), want {want_fused}")
+        check(bf16_n == want_bf16 and (label != "bf16" or (
+            head["bf16_decide"] == head["calls"] and sf12["bf16_decide"] == sf12["calls"])),
+              f"phase 20 (a) {label}: {bf16_n} bf16_decide launches, want {want_bf16} "
+              f"(headline {head}, SF12 {sf12})")
+        print(f"phase 20 (a) {label}: {card}: {json.dumps(line)}", flush=True)
+        print(f"phase 20 (a) {label}: launches fused_demod {fused_n} ({head['calls']} headline "
+              f"calls), bf16_decide {bf16_n} ({head['calls']} headline + {sf12['calls']} SF12 "
+              f"calls); regressed {line['regressed']} (reported, not a gate here: "
+              f"the floors hold for one card and power limit)", flush=True)
+        torch.cuda.empty_cache()
+
+
+def phase20b_stage_profile(dev, card):
+    """The block receiver at bench shape under torch.profiler, each device
+    event attributed to its record_function range (the stages of
+    tools/torch_profile_block_rx.py); the stages' device ms add up to
+    within 10 % of the call's busy time, and the stage markers cost the
+    untraced call under 2 % of its time."""
+    import importlib.util
+
+    from lora_phy_tpu_torch.utils.profiling import range_profile
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_block_rx", REPO / "tools" / "torch_profile_block_rx.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    call, total = tool.block_rx_call(dev, BLOCK_FRAMES)
+    torch.cuda.synchronize()
+    reset_launches()
+    prof = range_profile(call, sync.CIRCULAR_STAGES, calls=tool.CALLS)
+    torch.cuda.synchronize()
+    read_launches("block_profile")
+    for line in prof.lines(f"phase 20 (b): {card}: block receiver, {total / 1e6:.1f} M samples"):
+        print(line, flush=True)
+    staged = sum(v[0] for v in prof.stages.values())
+    check(prof.busy_ms > 0, "phase 20 (b): the profiler recorded no device time")
+    check(abs(staged - prof.busy_ms) <= 0.1 * prof.busy_ms,
+          f"phase 20 (b): the stages' device ms {staged:.3f} are not within 10 % of the busy "
+          f"{prof.busy_ms:.3f} ms")
+    t = cuda_ms(call, iters=10)
+    # what the stage markers cost the receiver when no profiler runs: each
+    # is one stage_range call (a no-op range), eight a call
+    markers_ms = len(sync.CIRCULAR_STAGES) * tool.range_cost_us() / 1e3
+    print(f"phase 20 (b): {card}: receive_block_planar {t:.3f} ms median of 10 without the "
+          f"profiler; the stages' device ms {staged:.3f} of {prof.busy_ms:.3f} busy; its "
+          f"{len(sync.CIRCULAR_STAGES)} stage markers cost {markers_ms:.4f} ms of host time "
+          f"untraced ({markers_ms / t:.5f} of the call)", flush=True)
+    check(markers_ms <= 0.02 * t, f"phase 20 (b): the stage markers cost {markers_ms:.4f} ms, "
+          f"over 2 % of the {t:.3f} ms call")
+
+
+def fused_bound(n_rows, n, window=False):
+    """(bound ms, by, flop, bytes) of one fused_detect_rows call: per row
+    the N-point DFT as an FFT (5 N log2 N flops) plus the scale,
+    derotation, |.|^2 and the compare (14 N; the window 2 N more); each
+    input read once (the rows, start, rate, scale, the [N] complex twiddle
+    table and the window), the bins written once."""
+    log2n = n.bit_length() - 1
+    flops = n_rows * (5 * n * log2n + (16 if window else 14) * n)
+    nbytes = 4 * (2 * n_rows * n + 3 * n_rows + 2 * n + n_rows + (n if window else 0))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def tone_planes(gen, rows, n, cfo, gain, dev):
+    """[rows, N] planes of gain * exp(j 2 pi (bin + cfo) k / N) at a random
+    bin per row (cfo and gain [rows] or None); returns them and the bins."""
+    bins = torch.randint(0, n, (rows,), generator=gen, device=dev)
+    f = bins.to(torch.float32) if cfo is None else bins.to(torch.float32) + cfo
+    ph = f[:, None] * ((2 * np.pi / n) * torch.arange(n, device=dev, dtype=torch.float32))
+    yr, yi = torch.cos(ph), torch.sin(ph)
+    del ph
+    if gain is not None:
+        yr.mul_(gain[:, None])
+        yi.mul_(gain[:, None])
+    return yr, yi, bins.to(torch.int32)
+
+
+def same_bins(label, k, r, bins, gap_fn):
+    """Kernel bins ``k`` against the plain version's ``r``: equal outside
+    rows whose top-2 gap (``gap_fn(rows)``) lies within the near-tie, and
+    equal to the tones' ``bins`` where the two agree. Returns (differing,
+    max abs error)."""
+    differ = (k != r).nonzero().flatten()
+    if differ.numel():
+        gap, tie = gap_fn(differ)
+        check(bool((gap <= tie).all()), f"{label}: {int((gap > tie).sum())} rows differ from "
+              f"the plain version beyond a {tie:g} near-tie")
+    agree = k == r
+    wrong = int((k[agree] != bins[agree]).sum())
+    check(wrong == 0, f"{label}: {wrong} tone rows decided off their bin")
+    return differ.numel(), int((k.to(torch.int64) - r.to(torch.int64)).abs().max())
+
+
+def phase20c_fused_row(dev, card, gen, n, window):
+    """fused_detect_rows alone at N over SMALL_N_SAMPLES / N tone rows with
+    a per-row CFO (<= 0.3 bin) derotated by the row's rate, a random start
+    phase and amplitude scale; timed against its bound, its plain twin and
+    cuFFT's DFT alone. Returns the numbers."""
+    p = LoraParams(sf=n.bit_length() - 1, window=window)
+    rows = SMALL_N_SAMPLES // n
+    cfo = (torch.rand(rows, generator=gen, device=dev) - 0.5) * 0.6
+    gain = 1.0 + 7.0 * torch.rand(rows, generator=gen, device=dev)
+    xr, xi, bins = tone_planes(gen, rows, n, cfo, gain, dev)
+    start = (torch.rand(rows, generator=gen, device=dev) - 0.5) * 600.0
+    rate = cfo * (-2 * np.pi / n)
+    scale = 1.0 / gain
+    del cfo, gain
+    args = (xr, xi, start, rate, p, scale)
+    k = fused.fused_detect_rows(*args)
+    r = fused.fused_detect_rows_reference(*args)
+    label = f"phase 20 (c) fused_demod N={n} {window.name}"
+    differ, max_abs_err = same_bins(label, k, r, bins, lambda d: (twin_top2_gap(
+        [t[d] for t in (xr, xi, start, rate)], p, scale[d]), NEAR_TIE_REL))
+    del k, r
+    t_kernel = cuda_ms(lambda: fused.fused_detect_rows(*args), calls=10)
+    t_plain = cuda_ms(lambda: fused.fused_detect_rows_reference(*args), iters=3)
+    bound_ms, bound_by, flops, nbytes = fused_bound(rows, n, window != Window.NONE)
+    z = torch.complex(xr, xi)
+    del args, xr, xi
+    t_lib = cuda_ms(lambda: torch.fft.fft(z, dim=-1), calls=10)
+    del z
+    print(f"{label}: {card}: {rows} rows: CUDA kernel {t_kernel:.3f} ms "
+          f"({nbytes / t_kernel / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms by {bound_by} "
+          f"({flops:.4g} flop, {nbytes:.4g} B), {bound_ms / t_kernel:.3f} of it; plain twin "
+          f"{t_plain:.3f} ms; cuFFT's DFT alone (yardstick) {t_lib:.3f} ms; {differ} rows "
+          f"differ from the twin (near-ties), every other row at its tone's bin", flush=True)
+    torch.cuda.empty_cache()
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t_lib, "max_abs_err": max_abs_err, "rows": rows}
+
+
+def phase20c_bf16_row(dev, card, gen, n, rotated):
+    """bf16_decide_rows alone at N over SMALL_N_SAMPLES / N tone rows in
+    frames of SMALL_N_WINDOWS, with (a per-frame CFO and amplitude taken out
+    by the frame's rotation planes) or without rotation; timed against its
+    bound, its plain version and cuBLAS's bf16 GEMM alone. Returns the
+    numbers."""
+    p = LoraParams(sf=n.bit_length() - 1)
+    rows = SMALL_N_SAMPLES // n
+    frames = rows // SMALL_N_WINDOWS
+    rot, cfo, gain = (None, None), None, None
+    if rotated:
+        f_cfo = (torch.rand(frames, generator=gen, device=dev) - 0.5)
+        f_gain = 1.0 + 7.0 * torch.rand(frames, generator=gen, device=dev)
+        cfo = f_cfo.repeat_interleave(SMALL_N_WINDOWS)
+        gain = f_gain.repeat_interleave(SMALL_N_WINDOWS)
+        rot = tuple(t.contiguous() for t in planar._rotation_planes(
+            f_cfo * (-2 * np.pi / n), 1.0 / f_gain, p))
+    yr, yi, bins = tone_planes(gen, rows, n, cfo, gain, dev)
+    del cfo, gain
+    k = bf16.bf16_decide_rows(yr, yi, n, *rot, rows_per_rot=SMALL_N_WINDOWS)
+    r = bf16.bf16_decide_rows_reference(yr, yi, n, *rot, rows_per_rot=SMALL_N_WINDOWS)
+    label = f"phase 20 (c) bf16_decide N={n} {'rotated' if rotated else 'no rotation'}"
+
+    def gap(d):
+        rot_d = rot if rot[0] is None else tuple(t[d // SMALL_N_WINDOWS] for t in rot)
+        return bf16_top2_gap(yr[d], yi[d], n, *rot_d, 1), bf16.near_tie(n)
+
+    differ, max_abs_err = same_bins(label, k, r, bins, gap)
+    del k, r
+    t_kernel = cuda_ms(lambda: bf16.bf16_decide_rows(yr, yi, n, *rot,
+                                                    rows_per_rot=SMALL_N_WINDOWS), calls=10)
+    t_plain = cuda_ms(lambda: bf16.bf16_decide_rows_reference(
+        yr, yi, n, *rot, rows_per_rot=SMALL_N_WINDOWS), iters=3)
+    bound_ms, bound_by, flops, nbytes = bf16_bound(rows, frames if rotated else 0, n)
+    fr, fi = bf16._derotate(yr, yi, n, *rot, SMALL_N_WINDOWS)
+    del yr, yi
+    t_lib = bf16_library_ms(fr, fi, n)
+    del fr, fi
+    print(f"{label}: {card}: {rows} rows ({bf16.design(n)}): CUDA kernel {t_kernel:.3f} ms "
+          f"({nbytes / t_kernel / 1e6:.0f} GB/s, {flops / t_kernel / 1e9:.1f} TFLOP/s bf16), "
+          f"bound {bound_ms:.3f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B), "
+          f"{bound_ms / t_kernel:.3f} of it; plain version {t_plain:.3f} ms; cuBLAS bf16 GEMM "
+          f"alone (yardstick) {t_lib:.3f} ms; {differ} rows differ from the plain version "
+          f"(near-ties), every other row at its tone's bin", flush=True)
+    torch.cuda.empty_cache()
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t_lib, "max_abs_err": max_abs_err, "rows": rows}
+
+
+def phase20c_small_n(dev, card):
+    """Both kernels alone at N = 4..64 (SF2-6) over rows x N = the SF7 main
+    path's samples: fused_demod without and with the Hann window,
+    bf16_decide with and without rotation. Returns ({N: fused numbers},
+    {N: bf16 numbers}); the first configuration's numbers are the rows'."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    fused_rows, bf16_rows = {}, {}
+    for n in SMALL_N:
+        a = phase20c_fused_row(dev, card, gen, n, Window.NONE)
+        b = phase20c_fused_row(dev, card, gen, n, Window.HANN)
+        fused_rows[str(n)] = {**a, "ms_hann": b["ms"], "bound_ms_hann": b["bound_ms"],
+                              "launches": FUSED_BY_PATH.get(SMALL_SF_PATH.get(n), 0)}
+        a = phase20c_bf16_row(dev, card, gen, n, True)
+        b = phase20c_bf16_row(dev, card, gen, n, False)
+        bf16_rows[str(n)] = {**a, "ms_no_rotation": b["ms"],
+                             "bound_ms_no_rotation": b["bound_ms"],
+                             "library_ms_no_rotation": b["library_ms"],
+                             "launches": BF16_BY_PATH.get(SMALL_SF_PATH.get(n), 0),
+                             "design": bf16.design(n)}
+    return fused_rows, bf16_rows
 
 
 def mesh_worker(rank, nproc, addr, backend):

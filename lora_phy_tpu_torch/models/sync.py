@@ -41,6 +41,7 @@ from ..ops.planar import (_decimation_phase, _preamble_phase_step,
                           demodulate_spectrum_planar, detect_planar,
                           estimate_preamble_planar,
                           estimate_preamble_robust_planar, estimate_sro_planar)
+from ..utils.profiling import stage_range
 from .modem import _sync_from_symbols, _window_table
 
 
@@ -318,6 +319,13 @@ def _snr_db(mag2_pay: torch.Tensor, n: int) -> torch.Tensor:
         / torch.clamp(torch.mean(noise, dim=-1), min=1e-30))
 
 
+# the record_function ranges of the block receiver's circular path, in
+# order: the scan and candidate selection (receive_block_planar), then the
+# stages of _receive_block_circular
+CIRCULAR_STAGES = ("front", "gather", "probes", "sections", "dechirp", "estimator",
+                   "demod", "sro")
+
+
 def _receive_block_circular(xr, xi, params: LoraParams,
                             n_payload_symbols: int, max_frames: int,
                             preamble_len: int, start, cfo_bins, found,
@@ -331,7 +339,14 @@ def _receive_block_circular(xr, xi, params: LoraParams,
     aligned spectrum rotated by exactly ``q`` bins. So no sample moves:
     decisions read ``(raw + q_section - cfo_bins) mod n``, and only the
     fractional CFO is derotated, at the true sample index ``(j - q) mod
-    n`` (docs/SEMANTICS.md "circular extraction"). Makes no host read."""
+    n`` (docs/SEMANTICS.md "circular extraction"). Makes no host read.
+
+    While a profiler runs, each stage runs in a ``record_function`` range
+    (:func:`stage_range`; nothing otherwise) named after the stages of
+    ``tools/profile_block_rx.py``: ``gather``,
+    ``probes``, ``sections``, ``dechirp``, ``estimator``, ``demod``,
+    ``sro`` (``front`` is the scan in :func:`receive_block_planar`);
+    ``tools/torch_profile_block_rx.py`` reads them."""
     from .stream import frame_overhead_samples     # stream imports this module
 
     n, osr, step = params.n, params.osr, params.step
@@ -345,146 +360,153 @@ def _receive_block_circular(xr, xi, params: LoraParams,
     win_full = overhead + n_payload_symbols * step
     nwin_g = win_full // step + 4
 
-    w0 = torch.div(start, step, rounding_mode="floor")   # >= -1 for found
-    q = torch.remainder(start, step)                      # [..., K]
+    with stage_range("gather"):
+        w0 = torch.div(start, step, rounding_mode="floor")   # >= -1 for found
+        q = torch.remainder(start, step)                      # [..., K]
 
-    def gather_rows(plane):
-        tail = (nwin_g + 2) * step + (-T) % step
-        # 2 front windows: the buffer starts one window BEFORE the
-        # candidate so the probe can test the -step hypothesis
-        rows = F.pad(plane, (2 * step, tail)).reshape(*lead, -1, step)
-        return _gather_window_rows(rows, w0 + 1, nwin_g, step)
+        def gather_rows(plane):
+            tail = (nwin_g + 2) * step + (-T) % step
+            # 2 front windows: the buffer starts one window BEFORE the
+            # candidate so the probe can test the -step hypothesis
+            rows = F.pad(plane, (2 * step, tail)).reshape(*lead, -1, step)
+            return _gather_window_rows(rows, w0 + 1, nwin_g, step)
 
-    g_r, g_i = gather_rows(xr), gather_rows(xi)          # [..., K, nwin_g, step]
+        g_r, g_i = gather_rows(xr), gather_rows(xi)          # [..., K, nwin_g, step]
 
-    jj = torch.arange(step, dtype=torch.int32, device=dev)
-    qq = q[..., None, None]
-    # payload grid: the 2.25-downchirp SFD puts the payload dq = step/4
-    # past the window grid; the carry bumps its base window by one
-    q_p = q + dq
-    cp = (q_p >= step).to(torch.int32)
-    q_p = q_p - cp * step
-    qqp = q_p[..., None, None]
+    with stage_range("probes"):
+        jj = torch.arange(step, dtype=torch.int32, device=dev)
+        qq = q[..., None, None]
+        # payload grid: the 2.25-downchirp SFD puts the payload dq = step/4
+        # past the window grid; the carry bumps its base window by one
+        q_p = q + dq
+        cp = (q_p >= step).to(torch.int32)
+        q_p = q_p - cp * step
+        qqp = q_p[..., None, None]
 
-    dr0, di0 = _downchirp(params, dev)
-    # wrap constant: samples taken from the NEXT grid window are
-    # pre-multiplied by conj(s0) so the dechirped w' is one exact ramp
-    s0, _ = _circ_wrap_const(params)
-    s0r, s0i = float(np.float32(s0.real)), float(np.float32(s0.imag))
+        dr0, di0 = _downchirp(params, dev)
+        # wrap constant: samples taken from the NEXT grid window are
+        # pre-multiplied by conj(s0) so the dechirped w' is one exact ramp
+        s0, _ = _circ_wrap_const(params)
+        s0r, s0i = float(np.float32(s0.real)), float(np.float32(s0.imag))
 
-    def circ_select(wr_, wi_, nr_, ni_, m):
-        """w'[j] = j<q ? conj(s0)*next[j] : cur[j] (planar)."""
-        return (torch.where(m, nr_ * s0r + ni_ * s0i, wr_),
-                torch.where(m, ni_ * s0r - nr_ * s0i, wi_))
+        def circ_select(wr_, wi_, nr_, ni_, m):
+            """w'[j] = j<q ? conj(s0)*next[j] : cur[j] (planar)."""
+            return (torch.where(m, nr_ * s0r + ni_ * s0i, wr_),
+                    torch.where(m, ni_ * s0r - nr_ * s0i, wi_))
 
-    # --- run-end disambiguation: 2 windows x 3 hypotheses; peak
-    # magnitudes are rotation- and CFO-invariant
-    def _probe(m, down: bool):
-        sr, si_ = circ_select(g_r[..., m, :], g_i[..., m, :],
-                              g_r[..., m + 1, :], g_i[..., m + 1, :],
-                              jj < qq[..., 0])
-        if down:      # x * conj(down): concentrates downchirps
-            ur, ui = sr * dr0 + si_ * di0, si_ * dr0 - sr * di0
-        else:         # x * down: concentrates upchirps
-            ur, ui = sr * dr0 - si_ * di0, si_ * dr0 + sr * di0
-        _, pk = argmax_bins_planar(ur, ui, n, with_peak=True)
-        return pk
+        # --- run-end disambiguation: 2 windows x 3 hypotheses; peak
+        # magnitudes are rotation- and CFO-invariant
+        def _probe(m, down: bool):
+            sr, si_ = circ_select(g_r[..., m, :], g_i[..., m, :],
+                                  g_r[..., m + 1, :], g_i[..., m + 1, :],
+                                  jj < qq[..., 0])
+            if down:      # x * conj(down): concentrates downchirps
+                ur, ui = sr * dr0 + si_ * di0, si_ * dr0 - sr * di0
+            else:         # x * down: concentrates upchirps
+                ur, ui = sr * dr0 - si_ * di0, si_ * dr0 + sr * di0
+            _, pk = argmax_bins_planar(ur, ui, n, with_peak=True)
+            return pk
 
-    def hyp_score(woff):
-        return (_probe(woff + preamble_len + 1, down=False)
-                + _probe(woff + preamble_len + 2, down=True))
+        def hyp_score(woff):
+            return (_probe(woff + preamble_len + 1, down=False)
+                    + _probe(woff + preamble_len + 2, down=True))
 
-    # stack order: reported start first, so an exact tie keeps it
-    # (torch.argmax returns the first maximum)
-    scores = torch.stack([hyp_score(1), hyp_score(0), hyp_score(2)])
-    hyp = torch.argmax(scores, dim=0)                  # [..., K] in {0,1,2}
-    # window offset of the winning hypothesis: 1 (as reported), 0 (one
-    # symbol early) or 2 (one late)
-    woff = torch.where(hyp == 1, 0, torch.where(hyp == 2, 2, 1)).to(torch.int32)
-    start = start + (woff - 1) * step
-    found = found & (start >= 0)      # unrescued negative-start alias
-    payload_start = start + overhead
-    found = found & (payload_start + n_payload_symbols * step <= T)
+        # stack order: reported start first, so an exact tie keeps it
+        # (torch.argmax returns the first maximum)
+        scores = torch.stack([hyp_score(1), hyp_score(0), hyp_score(2)])
+        hyp = torch.argmax(scores, dim=0)                  # [..., K] in {0,1,2}
+        # window offset of the winning hypothesis: 1 (as reported), 0 (one
+        # symbol early) or 2 (one late)
+        woff = torch.where(hyp == 1, 0, torch.where(hyp == 2, 2, 1)).to(torch.int32)
+        start = start + (woff - 1) * step
+        found = found & (start >= 0)      # unrescued negative-start alias
+        payload_start = start + overhead
+        found = found & (payload_start + n_payload_symbols * step <= T)
 
-    def hyp_pick(gp, base, ln, sel, nsel):
-        """gp windows [base+sel .. base+sel+ln) for per-frame sel."""
-        out = gp[..., base + nsel - 1: base + nsel - 1 + ln, :]
-        for b in range(nsel - 2, -1, -1):
-            out = torch.where(sel[..., None, None] == b,
-                              gp[..., base + b: base + b + ln, :], out)
-        return out
+    with stage_range("sections"):
+        def hyp_pick(gp, base, ln, sel, nsel):
+            """gp windows [base+sel .. base+sel+ln) for per-frame sel."""
+            out = gp[..., base + nsel - 1: base + nsel - 1 + ln, :]
+            for b in range(nsel - 2, -1, -1):
+                out = torch.where(sel[..., None, None] == b,
+                                  gp[..., base + b: base + b + ln, :], out)
+            return out
 
-    def section(base, ln, qsel, sel, nsel):
-        """[..., K, ln, step] true windows (rotated by qsel) at window
-        ``base + sel``: hypothesis pick, then the circular select against
-        the +1-row halo."""
-        pr_ = hyp_pick(g_r, base, ln + 1, sel, nsel)
-        pi_ = hyp_pick(g_i, base, ln + 1, sel, nsel)
-        return circ_select(pr_[..., :-1, :], pi_[..., :-1, :],
-                           pr_[..., 1:, :], pi_[..., 1:, :], jj < qsel)
+        def section(base, ln, qsel, sel, nsel):
+            """[..., K, ln, step] true windows (rotated by qsel) at window
+            ``base + sel``: hypothesis pick, then the circular select against
+            the +1-row halo."""
+            pr_ = hyp_pick(g_r, base, ln + 1, sel, nsel)
+            pi_ = hyp_pick(g_i, base, ln + 1, sel, nsel)
+            return circ_select(pr_[..., :-1, :], pi_[..., :-1, :],
+                               pr_[..., 1:, :], pi_[..., 1:, :], jj < qsel)
 
-    ps_r, ps_i = section(0, preamble_len + 2, qq, woff, 3)      # pre+sync
-    pd_r, pd_i = section(ov_w, n_payload_symbols, qqp, woff + cp, 4)
+        ps_r, ps_i = section(0, preamble_len + 2, qq, woff, 3)      # pre+sync
+        pd_r, pd_i = section(ov_w, n_payload_symbols, qqp, woff + cp, 4)
 
-    def dech(a_r, a_i):     # up-dechirp: x * down
-        return a_r * dr0 - a_i * di0, a_r * di0 + a_i * dr0
+    with stage_range("dechirp"):
+        def dech(a_r, a_i):     # up-dechirp: x * down
+            return a_r * dr0 - a_i * di0, a_r * di0 + a_i * dr0
 
-    ps_r, ps_i = dech(ps_r, ps_i)
-    pd_r, pd_i = dech(pd_r, pd_i)
+        ps_r, ps_i = dech(ps_r, ps_i)
+        pd_r, pd_i = dech(pd_r, pd_i)
 
-    # residual fractional CFO from the rotated preamble spectra: the tone
-    # sits at (cfo_bins - q) mod n
-    pps = _phase_step(params, tx_phase_step)
-    b0 = torch.remainder(cfo_bins - q, n)
-    cfo_resid = estimate_preamble_planar(
-        ps_r[..., :preamble_len, :].reshape(*lead, max_frames, pre_len),
-        ps_i[..., :preamble_len, :].reshape(*lead, max_frames, pre_len),
-        n, osr, phase_step=pps, bin_offset=b0)
+    with stage_range("estimator"):
+        # residual fractional CFO from the rotated preamble spectra: the tone
+        # sits at (cfo_bins - q) mod n
+        pps = _phase_step(params, tx_phase_step)
+        b0 = torch.remainder(cfo_bins - q, n)
+        cfo_resid = estimate_preamble_planar(
+            ps_r[..., :preamble_len, :].reshape(*lead, max_frames, pre_len),
+            ps_i[..., :preamble_len, :].reshape(*lead, max_frames, pre_len),
+            n, osr, phase_step=pps, bin_offset=b0)
 
-    # fractional derotation at the TRUE sample index (j - q) mod n
-    rate = -float(np.float32(2.0 * math.pi)) * cfo_resid / float(n)
+    with stage_range("demod"):
+        # fractional derotation at the TRUE sample index (j - q) mod n
+        rate = -float(np.float32(2.0 * math.pi)) * cfo_resid / float(n)
 
-    def rot_factor(qs):
-        qs = qs[..., None]
-        idx_true = (jj - qs + torch.where(jj < qs, n, 0)).to(torch.float32)
-        ph = rate[..., None] * idx_true
-        return torch.cos(ph), torch.sin(ph)            # [..., K, n]
+        def rot_factor(qs):
+            qs = qs[..., None]
+            idx_true = (jj - qs + torch.where(jj < qs, n, 0)).to(torch.float32)
+            ph = rate[..., None] * idx_true
+            return torch.cos(ph), torch.sin(ph)            # [..., K, n]
 
-    def rot(a_r, a_i, c_, s_):
-        c_, s_ = c_[..., None, :], s_[..., None, :]
-        return a_r * c_ - a_i * s_, a_r * s_ + a_i * c_
+        def rot(a_r, a_i, c_, s_):
+            c_, s_ = c_[..., None, :], s_[..., None, :]
+            return a_r * c_ - a_i * s_, a_r * s_ + a_i * c_
 
-    ca, sa = rot_factor(q)
-    cb, sb_ = rot_factor(q_p)
-    sy_r, sy_i = rot(ps_r[..., preamble_len:, :],
-                     ps_i[..., preamble_len:, :], ca, sa)
-    pl_r, pl_i = rot(pd_r, pd_i, cb, sb_)
-    fr = torch.cat([sy_r, pl_r], dim=-2)
-    fi = torch.cat([sy_i, pl_i], dim=-2)
-    mag2 = dft_mag2_planar(fr, fi, n)                  # [..., K, 2+S, n]
+        ca, sa = rot_factor(q)
+        cb, sb_ = rot_factor(q_p)
+        sy_r, sy_i = rot(ps_r[..., preamble_len:, :],
+                         ps_i[..., preamble_len:, :], ca, sa)
+        pl_r, pl_i = rot(pd_r, pd_i, cb, sb_)
+        fr = torch.cat([sy_r, pl_r], dim=-2)
+        fi = torch.cat([sy_i, pl_i], dim=-2)
+        mag2 = dft_mag2_planar(fr, fi, n)                  # [..., K, 2+S, n]
 
-    # index correction: raw = s + c - q_section. At chirp slope > 1
-    # (BW250/500) the payload grid's quarter-window offset dq rotates
-    # every payload tone by dq*(scale-1) more bins; no-op at BW125.
-    raw = torch.argmax(mag2, dim=-1).to(torch.int32)
-    dq_rot = int(round((dq // osr) * (params.scale - 1.0)))
-    corr_s = torch.remainder(q - cfo_bins, n)[..., None]
-    corr_p = torch.remainder(q_p - cfo_bins + dq_rot, n)[..., None]
-    s_idx = torch.arange(2 + n_payload_symbols, dtype=torch.int32, device=dev)
-    bins = torch.remainder(raw + torch.where(s_idx < 2, corr_s, corr_p), n)
-    shift = (params.sf - 4) if params.sf > 4 else 0
-    hi = (bins[..., 0] >> shift) & 0x0F
-    lo = (bins[..., 1] >> shift) & 0x0F
-    sync_word = ((hi << 4) | lo).to(torch.uint8)
-    syms = bins[..., 2:]
+        # index correction: raw = s + c - q_section. At chirp slope > 1
+        # (BW250/500) the payload grid's quarter-window offset dq rotates
+        # every payload tone by dq*(scale-1) more bins; no-op at BW125.
+        raw = torch.argmax(mag2, dim=-1).to(torch.int32)
+        dq_rot = int(round((dq // osr) * (params.scale - 1.0)))
+        corr_s = torch.remainder(q - cfo_bins, n)[..., None]
+        corr_p = torch.remainder(q_p - cfo_bins + dq_rot, n)[..., None]
+        s_idx = torch.arange(2 + n_payload_symbols, dtype=torch.int32, device=dev)
+        bins = torch.remainder(raw + torch.where(s_idx < 2, corr_s, corr_p), n)
+        shift = (params.sf - 4) if params.sf > 4 else 0
+        hi = (bins[..., 0] >> shift) & 0x0F
+        lo = (bins[..., 1] >> shift) & 0x0F
+        sync_word = ((hi << 4) | lo).to(torch.uint8)
+        syms = bins[..., 2:]
 
-    mag2_pay = mag2[..., 2:, :]
-    sro_ppm = estimate_sro_planar(
-        pd_r.reshape(*lead, max_frames, n_payload_symbols * step),
-        pd_i.reshape(*lead, max_frames, n_payload_symbols * step), params)
-    blk = BlockFrames(found, start, cfo_bins, syms, sync_word,
-                      cfo_resid, torch.zeros_like(cfo_resid),
-                      _snr_db(mag2_pay, n), sro_ppm)
+    with stage_range("sro"):
+        mag2_pay = mag2[..., 2:, :]
+        sro_ppm = estimate_sro_planar(
+            pd_r.reshape(*lead, max_frames, n_payload_symbols * step),
+            pd_i.reshape(*lead, max_frames, n_payload_symbols * step), params)
+        blk = BlockFrames(found, start, cfo_bins, syms, sync_word,
+                          cfo_resid, torch.zeros_like(cfo_resid),
+                          _snr_db(mag2_pay, n), sro_ppm)
     if not with_spectra:
         return blk
     # payload spectra in TRUE bin order: the power of true bin v sits at
@@ -550,11 +572,12 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
     T = xr.shape[-1]
     dev = xr.device
 
-    scan = frame_sync_scan_planar(xr, xi, params, preamble_len,
-                                  min_power_db=min_power_db, pre_acc=pre_acc)
-    pos, found = _kth_valid(scan.valid, max_frames)           # [..., K]
-    start = torch.gather(scan.start, -1, pos)
-    cfo_bins = torch.gather(scan.cfo_bins, -1, pos)
+    with stage_range("front"):
+        scan = frame_sync_scan_planar(xr, xi, params, preamble_len,
+                                      min_power_db=min_power_db, pre_acc=pre_acc)
+        pos, found = _kth_valid(scan.valid, max_frames)           # [..., K]
+        start = torch.gather(scan.start, -1, pos)
+        cfo_bins = torch.gather(scan.cfo_bins, -1, pos)
 
     if (osr == 1 and pre_acc == 1 and _window_table(params) is None
             and _circ_wrap_const(params)[1]):

@@ -20,11 +20,17 @@ are kept apart.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
 import pathlib
 import tempfile
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .params import LoraParams
 
@@ -42,9 +48,6 @@ def trace(log_dir: str | os.PathLike | None = None):
     activity where a card is visible) and write its Chrome trace to
     ``log_dir/trace.json`` (default: ``lora_phy_torch_trace`` under the
     temporary directory). Yields the directory."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     log_dir = pathlib.Path(log_dir or pathlib.Path(tempfile.gettempdir())
                            / "lora_phy_torch_trace")
     log_dir.mkdir(parents=True, exist_ok=True)
@@ -56,6 +59,120 @@ def trace(log_dir: str | os.PathLike | None = None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+def stage_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs, else a no-op: code marks its stages with it and pays
+    for the ranges only when traced."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class RangeProfile:
+    """Per call of a profiled function: for each ``record_function``
+    range, (device ms of the kernels launched inside it, host ms, device
+    events); the same for device events launched outside every range
+    (``other``); the device ms of each kernel name; the host wall ms, the
+    device busy ms (the union of the device events' intervals) and the
+    device events per call."""
+
+    stages: dict
+    other: tuple
+    kernels: dict
+    wall_ms: float
+    busy_ms: float
+    events: float
+
+    def lines(self, label: str) -> list[str]:
+        out = [f"{label}: {'stage':>10} {'device ms':>10} {'host ms':>9} {'launches':>9}"]
+        for name, (dev_ms, host_ms, n) in [*self.stages.items(), ("(outside)", self.other)]:
+            host = "" if host_ms is None else f"{host_ms:9.3f}"
+            out.append(f"{label}: {name:>10} {dev_ms:10.3f} {host:>9} {n:9.1f}")
+        out.append(f"{label}: per call: wall {self.wall_ms:.3f} ms, device busy "
+                   f"{self.busy_ms:.3f} ms, idle share {self.idle_share:.3f}, "
+                   f"{self.events:.0f} device events; the stages' device ms add up to "
+                   f"{sum(v[0] for v in self.stages.values()):.3f}")
+        return out
+
+    @property
+    def idle_share(self) -> float:
+        """One minus busy over wall; the wall includes the profiler's own
+        host cost, so this is an upper bound."""
+        return 1.0 - self.busy_ms / self.wall_ms if self.wall_ms > 0 else float("nan")
+
+
+def _is_device_event(e, names) -> bool:
+    """A device activity (kernel, copy, set) rather than the device-side
+    span of a ``record_function`` range."""
+    return (e.device_type == DeviceType.CUDA and e.name not in names
+            and not getattr(e, "is_user_annotation", False)
+            and "annotation" not in str(getattr(e, "activity_type", "") or ""))
+
+
+def range_profile(fn, names, calls: int = 5) -> RangeProfile:
+    """One ``torch.profiler`` window of ``calls`` back-to-back calls of
+    ``fn()`` after a warm-up. Each range in ``names`` gets the device
+    events that the profiler links to the ops inside it (their durations
+    and count) and its own host time. The wall time includes the
+    profiler's own host cost, so the idle share is an upper bound. On the
+    CPU the device columns are 0."""
+    cuda = torch.cuda.is_available()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    fn()
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    events = list(prof.events())
+    device = [e for e in events if _is_device_event(e, names)]
+    # each device event is counted once, in the range that launched it
+    unclaimed = collections.Counter((e.name, e.time_range.elapsed_us()) for e in device)
+
+    def subtree(e):
+        """(device us, device events) linked to ``e`` and the ops under it."""
+        us, count = 0.0, 0
+        for k in e.kernels:
+            if unclaimed[(k.name, k.duration)] > 0:
+                unclaimed[(k.name, k.duration)] -= 1
+                us, count = us + k.duration, count + 1
+        for ch in e.cpu_children:
+            c_us, c_n = subtree(ch)
+            us, count = us + c_us, count + c_n
+        return us, count
+
+    acc = {name: [0.0, 0.0, 0] for name in names}
+    for r in events:
+        if r.device_type == DeviceType.CPU and r.name in acc:
+            us, count = subtree(r)
+            acc[r.name][0] += us
+            acc[r.name][1] += r.time_range.elapsed_us()
+            acc[r.name][2] += count
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, spans[0][0] if spans else 0.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = collections.Counter()
+    for e in device:
+        kernels[e.name] += e.time_range.elapsed_us() / 1e3 / calls
+    other_us = sum(e.time_range.elapsed_us() for e in device) - sum(v[0] for v in acc.values())
+    other_n = len(device) - sum(v[2] for v in acc.values())
+    return RangeProfile(
+        {name: (v[0] / 1e3 / calls, v[1] / 1e3 / calls, v[2] / calls) for name, v in acc.items()},
+        (other_us / 1e3 / calls, None, other_n / calls), dict(kernels), wall_ms,
+        busy / 1e3 / calls, len(spans) / calls)
 
 
 @dataclasses.dataclass

@@ -190,12 +190,12 @@ def _imported_modules(path: pathlib.Path) -> set:
 
 @pytest.mark.parametrize("path", sorted(
     [*(REPO / "lora_phy_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
-     REPO / "tools" / "torch_kernel_ablation.py"]),
+     REPO / "tools" / "torch_kernel_ablation.py", REPO / "tools" / "torch_profile_block_rx.py"]),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_names_the_jax_package(path):
     """No import statement of the port, of chip_smoke.py or of the port's
-    kernel ablation script names jax or the JAX package, even one that
-    would not load JAX."""
+    kernel ablation and block-receiver profile scripts names jax or the JAX
+    package, even one that would not load JAX."""
     bad = sorted(m for m in _imported_modules(path)
                  if m.split(".")[0] in ("jax", "lora_phy_tpu"))
     assert not bad, bad
