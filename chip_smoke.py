@@ -169,7 +169,14 @@ Imports no JAX. Phases, one line each (or a few):
    copies, the bs writes, the combine or the derotation); (d) bf16
    against f32 decisions under AWGN at SF7 (393,216 data symbols at 0, -6
    and -9 dB per sample); (e) card against CPU decisions on 16 frames with
-   CFOs at SF7 and SF12;
+   CFOs at SF7 and SF12; (f) the SF5 path (N = 32, the wgmma kernel): 8 x
+   32,768 frames of 32-byte payloads packed into 52 five-bit symbols
+   (pack_symbols; 453.0 M samples) through demodulate_planar(precision=
+   'bf16') with the estimator: the sent symbols back, every payload
+   unpacked bit-exact, sync 0x12, one launch per call; the demod against
+   plain f32 and fused=True, the kernel alone as in (b), and where its time
+   goes (BF16_N32_ABLATIONS: constant planes, no derotation, no prefetch,
+   a division per tile, one block an SM);
 20. (a) bench.py on the port (lora_phy_tpu_torch.runners.bench.main, in
    this process) three ways: f32 plain, --fused and --precision=bf16, each
    line printed: rc 0, every value non-null (its decode and coverage gates
@@ -285,6 +292,9 @@ BF16_SF12_FRAMES = 1024
 BF16_FOURSTEP_SFS = (8, 9, 10, 11, 12)
 BF16_AWGN_SNRS, BF16_AWGN_FRAMES = (0.0, -6.0, -9.0), 768
 BF16_CPU_FRAMES = 16
+# frames per channel of phase 19 (f)'s SF5 path: 8 x 32,768 frames of 54
+# windows x 32 samples (52 packed symbols and the sync pair), 453.0 M samples
+BF16_SF5_FRAMES = 32768
 
 
 # the bf16 decision kernel's (and fused_demod's) launches on each path,
@@ -2725,8 +2735,31 @@ FOURSTEP_ABLATIONS = {
     "no_derotate": [("if (kRot) derotate(fr[e], fi[e], __ldg(pc + i), __ldg(ps + i), fr[e], "
                      "fi[e]);", "")],
 }
-# the path whose kernel each set takes apart: SF7 (N = 128), SF12 (N = 4096)
-BF16_PATH_ABLATIONS = {7: BF16_ABLATIONS, 12: FOURSTEP_ABLATIONS}
+# the same for the wgmma kernel at N = 32, on phase 19 (f)'s SF5 rows: what
+# the rotation costs there, and the residency and the per-tile division
+# that once made it slow (PERF.md section 6)
+BF16_N32_ABLATIONS = {
+    # the rotation planes' reads: constant planes (cos 1, sin 0)
+    "const_planes": [("q.c = __ldg(reinterpret_cast<const float4*>(c));",
+                      "q.c = make_float4(1.f, 1.f, 1.f, 1.f);"),
+                     ("q.s = __ldg(reinterpret_cast<const float4*>(s));",
+                      "q.s = make_float4(0.f, 0.f, 0.f, 0.f);")],
+    # the derotation arithmetic (the rotation planes are still read)
+    "no_derotate": BF16_ABLATIONS["no_derotate"],
+    # the L1 prefetch of the next tile's rotation planes
+    "no_prefetch": BF16_ABLATIONS["no_prefetch"],
+    # the rotation rows by a 64-bit division per tile row again, as before
+    # the incremental RotIndex
+    "divide": [(f"const long long {p} = ({r} < rows ? {q}.q : last_rot) * N + 4 * t;",
+                f"const long long {p} = ({r} < rows ? {r} : rows - 1) / rows_per_rot * N "
+                f"+ 4 * t;") for p, r, q in (("p0", "row0", "rot0"), ("p1", "row1", "rot1"))],
+    # one block an SM (two warpgroups), as before
+    "one_block": [("static constexpr int kMinBlocks = N <= 64 ? 2 : 1;",
+                   "static constexpr int kMinBlocks = 1;")],
+}
+# the path whose kernel each set takes apart: SF5 (N = 32), SF7 (N = 128),
+# SF12 (N = 4096)
+BF16_PATH_ABLATIONS = {5: BF16_N32_ABLATIONS, 7: BF16_ABLATIONS, 12: FOURSTEP_ABLATIONS}
 
 
 def bf16_ablation_source(edits):
@@ -2785,29 +2818,35 @@ def bf16_ablation(card, label, yr, yi, cr, si, rows_per_rot, ablations):
     return med
 
 
-def bf16_path(dev, card, label, p, channels, frames, path):
+def bf16_path(dev, card, label, p, channels, frames, path, pack=False):
     """One bf16 decision path at full width: encode -> modulate -> dechirp
     -> demodulate_planar(precision='bf16') -> decode, every payload
     bit-exact, sync 0x12, one kernel launch per call (counted); the demod
     against plain f32 (and fused=True at N <= 128); the kernel alone, its
     bound, its plain version and cuBLAS's bf16 GEMM on the same rows; a
-    profile. Returns the numbers for the JSON line."""
+    profile. With ``pack`` the payloads are packed into SF-bit symbols
+    (pack_symbols; modem.encode's 8-bit codewords do not round-trip below
+    SF6) and the demodulated symbols must be the sent ones. Returns the
+    numbers for the JSON line."""
     pool = torch.from_numpy(np.random.RandomState(p.sf).randint(
         0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
     full = pool.repeat(channels * frames // POOL, 1).reshape(channels, frames, PAYLOAD_LEN)
-    re, im = planar.modulate_planar(modem.encode(full), p)
+    syms = pack_symbols(full, p.sf) if pack else modem.encode(full)
+    re, im = planar.modulate_planar(syms, p)
     xr, xi = planar.dechirp_planar(re, im, p)
     del re, im
     total = xr.numel()
     torch.cuda.synchronize()
     reset_launches()
     res = planar.demodulate_planar(xr, xi, p, precision="bf16")
-    decoded = modem.decode(res.symbols)
+    decoded = (unpack_symbols(res.symbols, p.sf, PAYLOAD_LEN) if pack
+               else modem.decode(res.symbols))
     torch.cuda.synchronize()
     fused_n = read_launches(path)
     launches = BF16_BY_PATH[path]
     check(launches == 1 and fused_n == 0, f"{label}: {launches} bf16 / {fused_n} fused "
           f"launches in one demodulate_planar(precision='bf16') call")
+    check(not pack or torch.equal(res.symbols, syms), f"{label}: symbols differ from the sent")
     check(torch.equal(decoded, full), f"{label}: decoded payloads differ")
     check(bool((res.sync_word == 0x12).all()), f"{label}: sync word is not 0x12")
     check(bool(torch.isfinite(res.cfo).all() and torch.isfinite(res.time_offset).all()),
@@ -2820,7 +2859,8 @@ def bf16_path(dev, card, label, p, channels, frames, path):
     t_fused = (cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, fused=True))
                if p.n <= 128 else None)
     fused_txt = "" if t_fused is None else f", fused=True {t_fused:.3f} ms"
-    print(f"{label}: {card}: {channels * frames} frames ({total / 1e6:.1f} M IQ samples) "
+    print(f"{label}: {card}: {channels * frames} frames ({total / 1e6:.1f} M IQ samples"
+          f"{', packed SF-bit symbols, the sent ones back' if pack else ''}) "
           f"decoded bit-exact through demodulate_planar(precision='bf16'), sync 0x12, "
           f"{launches} bf16_decide launch per call; precision='bf16' {t_bf16:.3f} ms "
           f"({total / t_bf16 / 1e6:.3f} Gsamples/s), plain f32 {t_f32:.3f} ms{fused_txt}",
@@ -2936,11 +2976,8 @@ def phase19c_fourstep(dev, card):
     BF16_SF12_FRAMES << (12 - SF) frames (~277 M samples); SF12 last.
     Returns each SF's numbers. To hold two versions of the kernel on one
     card, unpack the other tree (``git archive``) into a directory that
-    .gitignore lists, copy this file to its root and run, from each tree
-    in turns (other, this, this, other), ``python3 -c "import torch,
-    chip_smoke as c; c.BF16_PATH_ABLATIONS.clear();
-    c.phase19c_fourstep(torch.device('cuda', 0), c.card_line())"`` (without
-    the ablations, whose anchors are this tree's)."""
+    .gitignore lists and time both trees' kernels in turns with
+    ``tools/torch_kernel_resources.py --compare OTHER_CSRC``."""
     return {sf: bf16_path(dev, card, f"phase 19 (c) SF{sf}", LoraParams(sf=sf), 1,
                           BF16_SF12_FRAMES << (12 - sf), f"bf16_sf{sf}")
             for sf in BF16_FOURSTEP_SFS}
@@ -2957,6 +2994,10 @@ def phase19_bf16(dev, card):
     phase19d_awgn(dev, card)
     torch.cuda.empty_cache()
     phase19e_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    sf5 = bf16_path(dev, card, "phase 19 (f) SF5", LoraParams(sf=5), CHANNELS,
+                    BF16_SF5_FRAMES, "bf16_sf5", pack=True)
+    paths = {5: sf5, **paths}
     return {"name": "bf16_decide", "route": "cuda",
             "source": "lora_phy_tpu_torch/csrc/bf16_decide.cu",
             # no Pallas kernel: the jnp code XLA fuses for precision="bf16"
@@ -2970,8 +3011,11 @@ def phase19_bf16(dev, card):
             # the design that serves each N (the top-level numbers are SF7's)
             "design": {str(n): bf16.design(n) for n in bf16.KERNEL_N},
             "ablation_ms": sf7["ablation_ms"], "fourstep_ablation_ms": sf12["ablation_ms"],
+            "n32_ablation_ms": sf5["ablation_ms"],
             "demod_ms": {"sf7_bf16": sf7["demod_bf16_ms"], "sf7_f32": sf7["demod_f32_ms"],
                          "sf7_fused": sf7["demod_fused_ms"],
+                         "sf5_bf16": sf5["demod_bf16_ms"], "sf5_f32": sf5["demod_f32_ms"],
+                         "sf5_fused": sf5["demod_fused_ms"],
                          "sf12_bf16": sf12["demod_bf16_ms"], "sf12_f32": sf12["demod_f32_ms"]}}
 
 
@@ -2987,9 +3031,10 @@ BENCH_RUNS = (("f32", []), ("fused", ["--fused"]), ("bf16", ["--precision=bf16"]
 SMALL_N, SMALL_N_SAMPLES = (4, 8, 16, 32, 64), 553_648_128
 # symbol windows per frame (one rotation plane each) of phase 20 (c)
 SMALL_N_WINDOWS = 2 * PAYLOAD_LEN + 2
-# phase 2's path at each N of SF2-4 (the only paths that reach either
-# kernel at N < 128)
+# the path that reaches each kernel at N < 128: phase 2's SF2-4 demods
+# (fused_demod), phase 19 (f)'s SF5 demod (bf16_decide)
 SMALL_SF_PATH = {4: "small_sf2", 8: "small_sf3", 16: "small_sf4"}
+BF16_SMALL_PATH = {32: "bf16_sf5"}
 
 
 def phase20a_bench(dev, card):
@@ -3121,20 +3166,43 @@ def same_bins(label, k, r, bins, gap_fn):
     return differ.numel(), int((k.to(torch.int64) - r.to(torch.int64)).abs().max())
 
 
-def phase20c_fused_row(dev, card, gen, n, window):
-    """fused_detect_rows alone at N over SMALL_N_SAMPLES / N tone rows with
-    a per-row CFO (<= 0.3 bin) derotated by the row's rate, a random start
-    phase and amplitude scale; timed against its bound, its plain twin and
-    cuFFT's DFT alone. Returns the numbers."""
-    p = LoraParams(sf=n.bit_length() - 1, window=window)
+def small_n_fused_rows(gen, n, dev):
+    """SMALL_N_SAMPLES / N tone rows with a per-row CFO (<= 0.3 bin), a
+    random start phase and amplitude: (xr, xi, start, rate, scale, bins),
+    the rate and scale taking the CFO and amplitude out."""
     rows = SMALL_N_SAMPLES // n
     cfo = (torch.rand(rows, generator=gen, device=dev) - 0.5) * 0.6
     gain = 1.0 + 7.0 * torch.rand(rows, generator=gen, device=dev)
     xr, xi, bins = tone_planes(gen, rows, n, cfo, gain, dev)
     start = (torch.rand(rows, generator=gen, device=dev) - 0.5) * 600.0
-    rate = cfo * (-2 * np.pi / n)
-    scale = 1.0 / gain
-    del cfo, gain
+    return xr, xi, start, cfo * (-2 * np.pi / n), 1.0 / gain, bins
+
+
+def small_n_bf16_rows(gen, n, rotated, dev):
+    """SMALL_N_SAMPLES / N tone rows in frames of SMALL_N_WINDOWS, with a
+    per-frame CFO and amplitude and the rotation planes that take them out
+    (rotated) or without: (yr, yi, (cr, si) or (None, None), bins, frames)."""
+    p = LoraParams(sf=n.bit_length() - 1)
+    rows = SMALL_N_SAMPLES // n
+    frames = rows // SMALL_N_WINDOWS
+    rot, cfo, gain = (None, None), None, None
+    if rotated:
+        f_cfo = (torch.rand(frames, generator=gen, device=dev) - 0.5)
+        f_gain = 1.0 + 7.0 * torch.rand(frames, generator=gen, device=dev)
+        cfo = f_cfo.repeat_interleave(SMALL_N_WINDOWS)
+        gain = f_gain.repeat_interleave(SMALL_N_WINDOWS)
+        rot = tuple(t.contiguous() for t in planar._rotation_planes(
+            f_cfo * (-2 * np.pi / n), 1.0 / f_gain, p))
+    yr, yi, bins = tone_planes(gen, rows, n, cfo, gain, dev)
+    return yr, yi, rot, bins, frames
+
+
+def phase20c_fused_row(dev, card, gen, n, window):
+    """fused_detect_rows alone at N over small_n_fused_rows; timed against
+    its bound, its plain twin and cuFFT's DFT alone. Returns the numbers."""
+    p = LoraParams(sf=n.bit_length() - 1, window=window)
+    xr, xi, start, rate, scale, bins = small_n_fused_rows(gen, n, dev)
+    rows = xr.shape[0]
     args = (xr, xi, start, rate, p, scale)
     k = fused.fused_detect_rows(*args)
     r = fused.fused_detect_rows_reference(*args)
@@ -3160,24 +3228,11 @@ def phase20c_fused_row(dev, card, gen, n, window):
 
 
 def phase20c_bf16_row(dev, card, gen, n, rotated):
-    """bf16_decide_rows alone at N over SMALL_N_SAMPLES / N tone rows in
-    frames of SMALL_N_WINDOWS, with (a per-frame CFO and amplitude taken out
-    by the frame's rotation planes) or without rotation; timed against its
-    bound, its plain version and cuBLAS's bf16 GEMM alone. Returns the
-    numbers."""
-    p = LoraParams(sf=n.bit_length() - 1)
-    rows = SMALL_N_SAMPLES // n
-    frames = rows // SMALL_N_WINDOWS
-    rot, cfo, gain = (None, None), None, None
-    if rotated:
-        f_cfo = (torch.rand(frames, generator=gen, device=dev) - 0.5)
-        f_gain = 1.0 + 7.0 * torch.rand(frames, generator=gen, device=dev)
-        cfo = f_cfo.repeat_interleave(SMALL_N_WINDOWS)
-        gain = f_gain.repeat_interleave(SMALL_N_WINDOWS)
-        rot = tuple(t.contiguous() for t in planar._rotation_planes(
-            f_cfo * (-2 * np.pi / n), 1.0 / f_gain, p))
-    yr, yi, bins = tone_planes(gen, rows, n, cfo, gain, dev)
-    del cfo, gain
+    """bf16_decide_rows alone at N over small_n_bf16_rows, rotated or not;
+    timed against its bound, its plain version and cuBLAS's bf16 GEMM
+    alone. Returns the numbers."""
+    yr, yi, rot, bins, frames = small_n_bf16_rows(gen, n, rotated, dev)
+    rows = yr.shape[0]
     k = bf16.bf16_decide_rows(yr, yi, n, *rot, rows_per_rot=SMALL_N_WINDOWS)
     r = bf16.bf16_decide_rows_reference(yr, yi, n, *rot, rows_per_rot=SMALL_N_WINDOWS)
     label = f"phase 20 (c) bf16_decide N={n} {'rotated' if rotated else 'no rotation'}"
@@ -3225,7 +3280,7 @@ def phase20c_small_n(dev, card):
         bf16_rows[str(n)] = {**a, "ms_no_rotation": b["ms"],
                              "bound_ms_no_rotation": b["bound_ms"],
                              "library_ms_no_rotation": b["library_ms"],
-                             "launches": BF16_BY_PATH.get(SMALL_SF_PATH.get(n), 0),
+                             "launches": BF16_BY_PATH.get(BF16_SMALL_PATH.get(n), 0),
                              "design": bf16.design(n)}
     return fused_rows, bf16_rows
 

@@ -37,10 +37,11 @@
 // written to device memory.
 //
 // N = 32, 64, 128 (bf16_decide_wgmma): two warpgroups of 128 threads per
-// block, a persistent grid of the blocks the card holds (one per SM at
-// N = 128: 208 KB of shared memory); each warpgroup walks its own 64-row
-// tiles, so one's CUDA-core work (derotation, epilogue, copies) runs
-// while the other's products hold the tensor cores.
+// block, a persistent grid of the blocks the card holds: two an SM at N =
+// 32 and 64 (launch bounds cap registers at 128 a thread; 53 / 98 KB of
+// shared memory a block), one at N = 128 (208 KB); each warpgroup walks
+// its own 64-row tiles, so one's CUDA-core work (derotation, epilogue,
+// copies) runs while another's products hold the tensor cores.
 // - B: Wr^T and Wi^T ([bin][k], K-major) stay in shared memory for the
 //   whole call, 64 KB at N = 128, built on the host in the no-swizzle
 //   canonical wgmma layout (ops/bf16_decide.py::wgmma_layout), so the
@@ -66,11 +67,22 @@
 //   (wgmma.wait_group 1). The epilogue is in registers: a row's N bins
 //   lie in one quad of one warp, so |.|^2, a strict-> scan in bin order
 //   and two shuffles finish it, with no cross-warp combine.
+// - Rotation rows: a thread's tile rows r0 and r0 + 8 find their plane
+//   rows r / rows_per_rot by adds (RotIndex): one 64-bit division each when
+//   the walk starts, then the tile step's own quotient and remainder.
 // On an H100 (PERF.md section 6, chip_smoke.py phase 19 (b)), one
 // warpgroup per block left a tile's loads, products and epilogue in
 // series; the second warpgroup and the L1 prefetch of the rotation planes
-// brought the kernel near its bound. Refilling a stage one k-step at a
-// time (a barrier per k-step) was slower, and is not used.
+// brought the N = 128 kernel near its bound. Refilling a stage one k-step
+// at a time (a barrier per k-step) was slower, and is not used. At N = 32
+// a tile is two k-steps, so its fixed costs weigh four times what they do
+// at N = 128: with one block an SM (152 registers) and four 64-bit
+// divisions a thread a tile the rotated kernel took 2.056 ms on phase 20
+// (c)'s rows against 1.571 unrotated; two blocks an SM alone gave 1.569,
+// the divisions by a constant alone 1.743 (tools/torch_kernel_resources.py
+// --ablate on the sources before; H100 80GB HBM3, 700 W). With both
+// changes it takes 1.533 ms rotated and 1.494 unrotated, N = 64 1.556 and
+// 1.454 (--compare in turns, the same card).
 //
 // N = 256..4096 (bf16_decide_fourstep, one template over the (n1, n2) of
 // ops/fft.py::_split): warpgroups of 128 threads, each on its own tiles of
@@ -396,6 +408,28 @@ struct Wg {
   // apart (SBO); k-step s starts 256 s bytes in
   static constexpr uint32_t kLbo = 128;
   static constexpr uint32_t kSbo = 16 * N;
+  // blocks an SM: two at N <= 64 (four warpgroups, registers capped at 128
+  // a thread), one at N = 128 (its tables and stages take 208 KB)
+  static constexpr int kMinBlocks = N <= 64 ? 2 : 1;
+};
+
+// row / rows_per_rot (q) and row % rows_per_rot (m) of a row that moves on
+// by a fixed step: one division when the walk starts, then adds
+struct RotIndex {
+  long long q, m;
+  __device__ __forceinline__ static RotIndex at(long long row, long long rows_per_rot) {
+    const long long q = row / rows_per_rot;
+    return {q, row - q * rows_per_rot};
+  }
+  // the index `step` rows on, from the step's own index d
+  __device__ __forceinline__ RotIndex advanced(RotIndex d, long long rows_per_rot) const {
+    RotIndex r{q + d.q, m + d.m};
+    if (r.m >= rows_per_rot) {
+      r.m -= rows_per_rot;
+      ++r.q;
+    }
+    return r;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -571,7 +605,7 @@ __device__ __forceinline__ void quad_fragment(const Quad& q, uint32_t& r_lo, uin
 }
 
 template <int N, bool kRot>
-__global__ void __launch_bounds__(kWgs * kWgThreads, 1)
+__global__ void __launch_bounds__(kWgs * kWgThreads, Wg<N>::kMinBlocks)
 bf16_decide_wgmma(const float* __restrict__ yr, const float* __restrict__ yi,
                   const float* __restrict__ cr, const float* __restrict__ si, long long rows,
                   long long rows_per_rot, const __nv_bfloat16* __restrict__ wr,
@@ -606,6 +640,17 @@ bf16_decide_wgmma(const float* __restrict__ yr, const float* __restrict__ yi,
   float acc_r[N / 2], acc_i[N / 2];
 #pragma unroll
   for (int c = 0; c < N / 2; ++c) acc_r[c] = acc_i[c] = 0.0f;
+  // the rotation rows of this thread's two tile rows, moved on by adds from
+  // tile to tile; rows past the end take the last row's (never written)
+  const long long step = stride * kWgRows;
+  RotIndex rot0{0, 0}, rot1{0, 0}, d{0, 0};
+  long long last_rot = 0;
+  if (kRot) {
+    rot0 = RotIndex::at(tile * kWgRows + r0, rows_per_rot);
+    rot1 = RotIndex::at(tile * kWgRows + r0 + 8, rows_per_rot);
+    d = RotIndex::at(step, rows_per_rot);
+    last_rot = (rows - 1) / rows_per_rot;
+  }
 
   for (; tile < tiles; tile += stride) {
     // this tile's rows have landed (every thread's copies of the warpgroup)
@@ -618,17 +663,18 @@ bf16_decide_wgmma(const float* __restrict__ yr, const float* __restrict__ yi,
     const float* y1i = y0i + 8 * W::LD;
     const long long row0 = tile * kWgRows + r0, row1 = row0 + 8;
     const float *c0 = nullptr, *s0 = nullptr, *c1 = nullptr, *s1 = nullptr;
-    if (kRot) {  // rows past the end take the last row's planes (never written)
-      const long long rot0 = (row0 < rows ? row0 : rows - 1) / rows_per_rot;
-      const long long rot1 = (row1 < rows ? row1 : rows - 1) / rows_per_rot;
-      c0 = cr + rot0 * N + 4 * t;
-      s0 = si + rot0 * N + 4 * t;
-      c1 = cr + rot1 * N + 4 * t;
-      s1 = si + rot1 * N + 4 * t;
+    if (kRot) {
+      const long long p0 = (row0 < rows ? rot0.q : last_rot) * N + 4 * t;
+      const long long p1 = (row1 < rows ? rot1.q : last_rot) * N + 4 * t;
+      c0 = cr + p0;
+      s0 = si + p0;
+      c1 = cr + p1;
+      s1 = si + p1;
+      rot0 = rot0.advanced(d, rows_per_rot);
+      rot1 = rot1.advanced(d, rows_per_rot);
       if (tile + stride < tiles) {  // the next tile's planes, into L1 meanwhile
-        const long long nrow0 = (tile + stride) * kWgRows + r0, nrow1 = nrow0 + 8;
-        const long long nrot0 = (nrow0 < rows ? nrow0 : rows - 1) / rows_per_rot;
-        const long long nrot1 = (nrow1 < rows ? nrow1 : rows - 1) / rows_per_rot;
+        const long long nrot0 = row0 + step < rows ? rot0.q : last_rot;
+        const long long nrot1 = row1 + step < rows ? rot1.q : last_rot;
         prefetch_plane<N>(cr + nrot0 * N, t);
         prefetch_plane<N>(si + nrot0 * N, t);
         prefetch_plane<N>(cr + nrot1 * N, t);

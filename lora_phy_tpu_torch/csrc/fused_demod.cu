@@ -20,8 +20,8 @@
 // [rows x N] x [N x N] product (8 N^2 flop per row) would instead be held
 // by f32 FMA throughput at >= 8.5 ms.
 //
-// Design (N = 32, 64, 128; N = 4, 8, 16 take fused_demod_small below, one
-// thread per row through the same step 1, fft_dif and argmax rule):
+// Design (N = 32, 64, 128; N = 4, 8 and 16 take fused_demod_small below,
+// one thread per row through the same step 1, fft_dif and argmax rule):
 // G = N / 16 threads per row, each holding R = 16 samples at
 // stride G (n = t + G*j), so a warp covers 32 / G rows and every load
 // instruction reads whole 32-byte sectors. With k = k1 + R*k2:
@@ -297,20 +297,69 @@ fused_demod_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// N = 4, 8, 16 (SF2-4): one thread per row. The thread holds the row's N
-// samples in registers, applies step 1, runs the N-point radix-2 DIF over
-// them (the same fft_dif and twiddle table) and takes the first-max
-// argmax over the natural bins in its own registers: no transpose, no
-// shuffle. A warp reads 32 whole rows (N <= 16 floats each), so its
-// float4 loads cover contiguous bytes.
+// step 1 (load_step) for samples J.. of a row held in registers; the
+// recursion keeps every array index a compile-time constant, so the arrays
+// stay in registers whatever the unroller decides
+template <bool kWindow, int N, int J = 0>
+__device__ __forceinline__ void load_steps(float (&re)[N], float (&im)[N], float sc, float st,
+                                           float rt, const float (&win)[N]) {
+  if constexpr (J < N) {
+    load_step<kWindow>(re[J], im[J], sc, st, rt, static_cast<float>(J), win[J]);
+    load_steps<kWindow, N, J + 1>(re, im, sc, st, rt, win);
+  }
+}
+
+// first-max argmax over natural bins K.. of a bit-reversed DIF output
+template <int N, int K = 1>
+__device__ __forceinline__ void scan_bins(const float (&re)[N], const float (&im)[N],
+                                          float& best, int& best_k) {
+  if constexpr (K < N) {
+    constexpr int p = bit_reverse(K, log2i(N));
+    const float v = re[p] * re[p] + im[p] * im[p];
+    if (v > best) {
+      best = v;
+      best_k = K;
+    }
+    scan_bins<N, K + 1>(re, im, best, best_k);
+  }
+}
+
+// One thread's whole row: step 1, fft_dif<N> and the first-max argmax over
+// the natural bins (position p holds bin bit_reverse(p); the scan meets the
+// bins in natural order, so a strict > keeps the first maximum)
+template <bool kWindow, int N>
+__device__ __forceinline__ int decide_row(float (&re)[N], float (&im)[N], float sc, float st,
+                                          float rt, const float (&win)[N],
+                                          const float2 (&w)[N / 2]) {
+  load_steps<kWindow>(re, im, sc, st, rt, win);
+  fft_dif<N, 0, N>(re, im, w);
+  float best = re[0] * re[0] + im[0] * im[0];
+  int best_k = 0;
+  scan_bins<N>(re, im, best, best_k);
+  return best_k;
+}
+
+// N = 4, 8 and 16 (SF2-4): one thread per row. The thread loads the row's
+// N samples into registers with float4 loads and decides it there
+// (decide_row): no transpose, no shuffle. A warp reads 32 whole rows
+// (N <= 16 floats each). On an H100 (PERF.md section 6) a first version,
+// with unrolled loops in place of decide_row's recursion, reached 0.84
+// and 0.88 of the bytes bound at N = 4 and 16 but 0.343 at N = 8, where
+// the loops left the row's arrays in local memory (a 96-byte stack frame,
+// 38 local loads and 38 local stores in the SASS against none at N = 4;
+// tools/torch_kernel_resources.py). With the arrays in registers N = 8
+// reaches about 0.89 of its bound: the loads' 32-byte stride a lane costs
+// little once a row's two float4 loads are issued back to back. A
+// variant that staged a warp's 32 rows through shared memory by cp.async,
+// one tile ahead, was 3-4 % slower than this one in turns on one card
+// and was dropped.
 template <int N, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 fused_demod_small(const float* __restrict__ xr, const float* __restrict__ xi,
                   const float* __restrict__ start, const float* __restrict__ rate,
                   const float* __restrict__ scale, const float* __restrict__ window,
                   const float2* __restrict__ twiddle, int* __restrict__ out, long long rows) {
-  static_assert(N >= 4 && N <= 16 && (N & (N - 1)) == 0, "N in 4 / 8 / 16");
-  constexpr int kBits = log2i(N);
+  static_assert(N == 4 || N == 8 || N == 16, "N in 4 / 8 / 16");
   __shared__ float2 tw_s[N];
   __shared__ float win_s[N];
   for (int i = threadIdx.x; i < N; i += kThreads) {
@@ -336,25 +385,7 @@ fused_demod_small(const float* __restrict__ xr, const float* __restrict__ xi,
     const float st = start[row];
     const float rt = rate[row];
     const float sc = scale != nullptr ? scale[row] : 1.0f;
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      load_step<kWindow>(re[j], im[j], sc, st, rt, static_cast<float>(j), win_s[j]);
-
-    // position p holds bin bit_reverse(p); scan the bins in natural order,
-    // so a strict > keeps the first maximum
-    fft_dif<N, 0, N>(re, im, w);
-    float best = re[0] * re[0] + im[0] * im[0];
-    int best_k = 0;
-#pragma unroll
-    for (int k = 1; k < N; ++k) {
-      const int p = bit_reverse(k, kBits);
-      const float v = re[p] * re[p] + im[p] * im[p];
-      if (v > best) {
-        best = v;
-        best_k = k;
-      }
-    }
-    out[row] = best_k;
+    out[row] = decide_row<kWindow>(re, im, sc, st, rt, win_s, w);
   }
 }
 

@@ -128,6 +128,71 @@ def test_demodulate_planar_bf16_vs_jax(sf, snr_db):
     torch.testing.assert_close(got.time_offset, f32.time_offset, rtol=0, atol=0)
 
 
+def _pack_symbols(payloads, sf):
+    """[..., B] uint8 payloads -> [..., ceil(8B / sf)] int32 symbols of sf
+    bits each, the payload's bits LSB first, zero-padded (numpy, as
+    chip_smoke.pack_symbols packs them)."""
+    bits = ((payloads[..., None] >> np.arange(8)) & 1).reshape(*payloads.shape[:-1], -1)
+    pad = -bits.shape[-1] % sf
+    bits = np.pad(bits, [(0, 0)] * (bits.ndim - 1) + [(0, pad)])
+    bits = bits.reshape(*bits.shape[:-1], -1, sf)
+    return (bits << np.arange(sf)).sum(-1).astype(np.int32)
+
+
+# SF5 and SF6 carry packed symbols: modem.encode's 8-bit codewords do not
+# round-trip at SF5 in either package (ROADMAP Queue 3)
+PACKED_CASES = [(5, None), (5, -3.0), (6, None), (6, -3.0)]
+
+
+@pytest.mark.parametrize("sf,snr_db", PACKED_CASES)
+def test_demodulate_planar_bf16_packed_vs_jax(sf, snr_db):
+    """precision='bf16' at SF5 and SF6 on payloads packed into SF-bit
+    symbols, with the estimator (no known offsets), clean and under numpy
+    AWGN: symbols and sync equal to JAX's, cfo / time_offset within the
+    float32 tolerances; the clean loopback returns the sent symbols and
+    sync 0x12."""
+    p = LoraParams(sf=sf)
+    tp = tparams(p)
+    rng = np.random.RandomState(50 + sf)
+    payloads = rng.randint(0, 256, (3, 6)).astype(np.uint8)
+    syms = _pack_symbols(payloads, sf)
+    dech = np.asarray(jmodem.dechirp(jmodem.modulate(syms, p), p))
+    if snr_db is not None:
+        sigma = np.sqrt(0.5 * 10.0 ** (-snr_db / 10.0))
+        dech = dech + sigma * (rng.randn(*dech.shape) + 1j * rng.randn(*dech.shape))
+    xr, xi = jplanar.split_complex(dech.astype(np.complex64))
+    ref = jplanar.demodulate_planar(xr, xi, p, precision="bf16")
+    got = tplanar.demodulate_planar(tt(xr), tt(xi), tp, precision="bf16")
+    np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
+    np.testing.assert_array_equal(nn(got.sync_word), nn(ref.sync_word))
+    np.testing.assert_allclose(nn(got.cfo), nn(ref.cfo), rtol=0, atol=CFO_ATOL)
+    np.testing.assert_allclose(nn(got.time_offset), nn(ref.time_offset), rtol=0, atol=TO_ATOL)
+    if snr_db is None:
+        np.testing.assert_array_equal(nn(got.symbols), syms)
+        assert (nn(got.sync_word) == 0x12).all()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_sf5_modem_encode_does_not_round_trip_in_either_package(precision):
+    """A limit of the reference that the port mirrors (ROADMAP Queue 3):
+    modem.encode's Hamming(8,4) codewords have 8 bits, more than an SF5
+    symbol carries, so a clean SF5 loopback of 3 x 6 bytes (known zero
+    offsets) decodes some bytes wrong in both packages, the same symbols
+    and the same bytes. Payloads that must come back at SF5 are packed
+    into 5-bit symbols (test_demodulate_planar_bf16_packed_vs_jax)."""
+    p = LoraParams(sf=5)
+    payloads, xr, xi = _noisy(p, None, batch=3, payload_len=6, seed=5)
+    zero = np.zeros(3, np.float32)
+    ref = jplanar.demodulate_planar(xr, xi, p, precision=precision, known_offsets=(zero, zero))
+    got = tplanar.demodulate_planar(tt(xr), tt(xi), tparams(p), precision=precision,
+                                    known_offsets=(tt(zero), tt(zero)))
+    np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
+    jbytes = np.asarray(jmodem.decode(ref.symbols))
+    tbytes = nn(tmodem.decode(got.symbols))
+    np.testing.assert_array_equal(tbytes, jbytes)
+    assert (tbytes != payloads).sum() == 2
+
+
 @pytest.mark.parametrize("sf,snr_db", DEMOD_CASES)
 def test_demodulate_spectrum_planar_bf16_vs_jax(sf, snr_db):
     """The spectrum demod at precision='bf16': spectra within
@@ -384,10 +449,10 @@ def test_wgmma_tables_are_the_plain_versions_bits(n):
 
 
 def test_chip_smoke_ablations_find_their_anchors():
-    """Each of chip_smoke.py's copies of bf16_decide.cu (phase 19 (b) and
-    (c): where the N = 128 wgmma kernel's and the four-step's time goes)
-    finds every statement it replaces exactly once in the kernel's source,
-    and changes it."""
+    """Each of chip_smoke.py's copies of bf16_decide.cu (phase 19 (f), (b)
+    and (c): where the wgmma kernel's time goes at N = 32 and N = 128, and
+    the four-step's) finds every statement it replaces exactly once in the
+    kernel's source, and changes it."""
     import importlib.util
     import pathlib
 
@@ -396,8 +461,8 @@ def test_chip_smoke_ablations_find_their_anchors():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     shipped = smoke.bf16_ablation_source([])
-    sets = (smoke.BF16_ABLATIONS, smoke.FOURSTEP_ABLATIONS)
-    assert [smoke.BF16_PATH_ABLATIONS[sf] for sf in (7, 12)] == list(sets)
+    sets = (smoke.BF16_N32_ABLATIONS, smoke.BF16_ABLATIONS, smoke.FOURSTEP_ABLATIONS)
+    assert [smoke.BF16_PATH_ABLATIONS[sf] for sf in (5, 7, 12)] == list(sets)
     for ablations in sets:
         for name, edits in ablations.items():
             src = smoke.bf16_ablation_source(edits)
@@ -433,15 +498,25 @@ def test_cuda_kernel_matches_plain_version(sf):
     per-sample SNR: a differing bin only where the plain version's top two
     |.|^2 lie within bf16_decide.near_tie relative (the sums' order), peaks
     within it too; one launch per call; demodulate_planar at
-    precision='bf16' decodes through it. Row counts 63, 64, 65 and 4097
-    sit at the edges of the wgmma design's 64-row tile; at N > 128 the
-    four-step's tile of RB frame rows (FOURSTEP_TILE) gets RB - 1, RB + 1
-    (with and without a shared rotation) and 2 RB x (resident warpgroups)
-    + 1 rows, more than the resident warpgroups take in one tile each."""
+    precision='bf16' decodes through it (SF5 and SF6: on packed symbols,
+    which must come back as sent). Row counts 63, 64, 65 and 4097 sit at
+    the edges of the wgmma design's 64-row tile, and just over 16 x 64 x
+    SMs rows, in frames of 1, 3 and 66 rows a rotation row, are more than
+    the resident warpgroups (at most 16 an SM) take in one tile each; at
+    N > 128 the four-step's tile of RB frame rows
+    (FOURSTEP_TILE) gets RB - 1, RB + 1 (with and without a shared
+    rotation) and 2 RB x (resident warpgroups) + 1 rows, more than the
+    resident warpgroups take in one tile each."""
     dev = cuda_device()
     p = LoraParams(sf=sf)
     n = p.n
     cases = [(1, 1), (7, 3), (301, 5), (63, 1), (32, 2), (13, 5), (4097, 1)]
+    if n in tbf16.WGMMA_N:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        # frames of 1, 3 and 66 rows, more rows than one pass of the
+        # resident warpgroups takes: each walks tiles and carries its
+        # rotation index from tile to tile; the last tile is partial
+        cases += [(16 * 64 * sms // r + 1, r) for r in (1, 3, 66)]
     if n > 128:
         rb, warpgroups, blocks = tbf16.FOURSTEP_TILE[n]
         resident = warpgroups * blocks * torch.cuda.get_device_properties(
@@ -473,3 +548,14 @@ def test_cuda_kernel_matches_plain_version(sf):
         res = tplanar.demodulate_planar(tt(xr).to(dev), tt(xi).to(dev), tparams(p),
                                         precision="bf16")
         np.testing.assert_array_equal(nn(tmodem.decode(res.symbols)), payloads)
+    if sf in (5, 6):
+        syms = _pack_symbols(np.random.RandomState(sf).randint(0, 256, (4, 8)).astype(np.uint8),
+                             sf)
+        dech = np.asarray(jmodem.dechirp(jmodem.modulate(syms, p), p))
+        xr, xi = jplanar.split_complex(dech.astype(np.complex64))
+        launches = tbf16.LAUNCHES
+        res = tplanar.demodulate_planar(tt(xr).to(dev), tt(xi).to(dev), tparams(p),
+                                        precision="bf16")
+        assert tbf16.LAUNCHES == launches + 1
+        np.testing.assert_array_equal(nn(res.symbols), syms)
+        assert (nn(res.sync_word) == 0x12).all()

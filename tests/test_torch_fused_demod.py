@@ -304,7 +304,8 @@ def test_kernel_fft_emulation_matches_twin(sf, window):
 
 def test_ablation_variants_find_their_anchors():
     """Each variant of tools/torch_kernel_ablation.py finds every statement
-    it replaces exactly once in the kernel's source, and changes it."""
+    it replaces exactly once in the kernel's source, and changes it; at
+    N <= 16 the tool runs only the variants that reach that kernel."""
     import importlib.util
     import pathlib
 
@@ -317,6 +318,61 @@ def test_ablation_variants_find_their_anchors():
         src = ablation.variant_source(edits)
         assert (src == shipped) == (not edits), name
         assert all(old not in src for old, _ in edits), name
+    # the one-thread kernels (N <= 16) have no FFT anchors: only the
+    # sincosf variant reaches them
+    assert list(ablation.variants_for(8)) == ["kernel", "no_sincos"]
+    assert list(ablation.variants_for(128)) == list(ablation.VARIANTS)
+
+
+PTXAS_SAMPLE = """ptxas info    : 24 bytes gmem
+ptxas info    : Compiling entry function '_ZN1a1kILi8ELb0EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a1kILi8ELb0EEEvPKf
+    96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 96 bytes cumulative stack size, 64 bytes smem
+ptxas info    : Function properties for __internal_trig_reduction_slowpathd
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN1a1kILi8ELb1EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a1kILi8ELb1EEEvPKf
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+SASS_SAMPLE = """\tcode for sm_90a
+\t\tFunction : _ZN1a1kILi8ELb0EEEvPKf
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                               /* 0x000fe40000000800 */
+        /*0010*/                   STL.128 [R1], R4 ;          /* 0x0000000401007387 */
+        /*0020*/                   LDL.LU R3, [R1+0x10] ;      /* 0x0000100001037983 */
+        /*0030*/                   CALL.REL.NOINC 0x1200 ;     /* 0x0000000000007944 */
+\t\tFunction : _ZN1a1kILi8ELb1EEEvPKf
+        /*0000*/                   EXIT ;                      /* 0x000000000000794d */
+"""
+
+
+def test_resource_tool_reads_ptxas_and_sass():
+    """tools/torch_kernel_resources.py's parsers: each entry function's
+    registers, shared memory, stack frame and spills from ptxas -v (device
+    functions skipped), its instructions and local-memory and call
+    instructions from cuobjdump -sass, and the short names it reports."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / "torch_kernel_resources.py"
+    spec = importlib.util.spec_from_file_location("torch_kernel_resources", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    k0, k1 = "_ZN1a1kILi8ELb0EEEvPKf", "_ZN1a1kILi8ELb1EEEvPKf"
+    assert tool.parse_ptxas(PTXAS_SAMPLE) == {
+        k0: dict(stack=96, spill_stores=0, spill_loads=0, registers=40, smem=64),
+        k1: dict(stack=0, spill_stores=8, spill_loads=4, registers=128, smem=0)}
+    assert tool.parse_sass(SASS_SAMPLE) == {
+        k0: dict(instructions=4, LDL=1, STL=1, CALL=1),
+        k1: dict(instructions=1, LDL=0, STL=0, CALL=0)}
+    assert tool.short("void <unnamed>::fused_demod_small<(int)8, (bool)0>(const float *, "
+                      "long long)") == "fused_demod_small<8, 0>"
+    assert tool.short("void (anonymous namespace)::bf16_decide_fourstep<(int)16, (int)32, "
+                      "(bool)1>(const float *)") == "bf16_decide_fourstep<16, 32, 1>"
+    assert tool.short("void fused_demod_small<4, false>") == "fused_demod_small<4, false>"
 
 
 @pytest.mark.gpu
@@ -327,7 +383,10 @@ def test_cuda_kernel_matches_twin(sf, window):
     clean chirp rows, scaled (amplitude above 1) or not; on noise rows, at
     row counts that do not fill a block (1, 7, 4097) and with a per-row
     scale, a differing bin only where the twin's top two magnitudes are
-    within 1e-5 relative (a float32 near-tie); the tie row gives bin 0."""
+    within 1e-5 relative (a float32 near-tie); the tie row gives bin 0. At
+    N = 8 (a block of 256 rows, one a thread) also 255, 256 and 257 rows,
+    and 2048 x SMs + 1, more rows than the resident threads (at most 2048
+    an SM) take in one pass."""
     dev = cuda_device()
     p = LoraParams(sf=sf, window=window)
     tp = tparams(p)
@@ -344,7 +403,11 @@ def test_cuda_kernel_matches_twin(sf, window):
     ref = tplanar.demodulate_planar(xr * gain, xi * gain, tp, fused=False)
     torch.testing.assert_close(got.symbols, ref.symbols, rtol=0, atol=0)
 
-    for b in (1, 7, 4097):
+    counts = [1, 7, 4097]
+    if p.n == 8:
+        counts += [255, 256, 257,
+                   2048 * torch.cuda.get_device_properties(dev).multi_processor_count + 1]
+    for b in counts:
         rows = [tt(a).to(dev) for a in _random_rows(p, b, seed=sf + b)]
         scale = torch.from_numpy(np.random.RandomState(b).uniform(0.2, 1.0, b)
                                  .astype(np.float32)).to(dev)

@@ -3,27 +3,31 @@
 ``lora_phy_tpu_torch/csrc/fused_demod.cu`` against copies of itself with
 parts taken out.
 
-    python3 tools/torch_kernel_ablation.py [--rows 4325376] [--rounds 3]
+    python3 tools/torch_kernel_ablation.py [--n 128] [--rows R] [--rounds 3]
 
 The variants, each the kernel's source with statements replaced (every
 anchor is asserted, so an edit of the kernel that moves one fails here
 rather than timing the wrong thing):
 
 - ``kernel``: the source as shipped;
-- ``no_fft``: both FFT passes removed (loads, scale, derotation,
-  transpose and argmax stay);
+- ``no_fft``: both FFT passes of the N = 32..128 kernel removed (loads,
+  scale, derotation, transpose and argmax stay);
 - ``no_sincos``: ``sincosf`` replaced by two moves (the phase and the
-  rotation stay);
+  rotation stay), at every N;
 - ``loads_derotate``: both removed.
+
+At N <= 16 (one thread a row, no FFT anchors) only ``kernel`` and
+``no_sincos`` run.
 
 All are compiled at once by nvcc with the package's flags
 (``_build.compile_library``) into ``build/lora_phy_tpu_torch/ablation/``
-and launched through the same C entry point on the same N = 128 noise
-rows with a per-row scale (start in +-300 rad, rate in +-0.5 rad per
-sample), at the bench shape's row count. Torch's two row sums over the
-same planes are timed as a yardstick of reading them. Each is timed in
-interleaved rounds (CUDA events over 10 launches after a warm-up); one
-JSON line per variant and round, with the card's name and power limit.
+and launched through the same C entry point on the same noise rows of N
+(default 128) with a per-row scale (start in +-300 rad, rate in +-0.5 rad
+per sample), at the bench shape's samples (553,648,128 / N rows).
+Torch's two row sums over the same planes are timed as a yardstick of
+reading them. Each is timed in interleaved rounds (CUDA events over 10
+launches after a warm-up); one JSON line per variant and round, with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
 
-from lora_phy_tpu_torch import LoraParams, _build, device_table  # noqa: E402
+from lora_phy_tpu_torch import _build, device_table  # noqa: E402
 from lora_phy_tpu_torch.ops import fused_demod  # noqa: E402
 
 SINCOS = "sincosf(ph, &s, &c);"
@@ -53,6 +57,13 @@ VARIANTS = {
     "no_sincos": [(SINCOS, "s = ph; c = rt;")],
     "loads_derotate": [(SINCOS, "s = ph; c = rt;"), (FFT_R, ""), (FFT_G, "")],
 }
+
+
+def variants_for(n: int):
+    """The VARIANTS whose anchors reach the kernel that N dispatches to:
+    the FFT anchors are in the N = 32..128 kernel only."""
+    return {name: edits for name, edits in VARIANTS.items()
+            if n >= 32 or all(old == SINCOS for old, _ in edits)}
 
 
 def variant_source(edits) -> str:
@@ -90,7 +101,8 @@ def events_ms(fn, launches=10) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=4325376)
+    ap.add_argument("--n", type=int, default=128, choices=fused_demod.CUDA_N)
+    ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,11 +110,13 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS, VARIANTS.values())))
+    n = args.n
+    variants = variants_for(n)
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(build_variant, variants, variants.values())))
 
     dev = torch.device("cuda", 0)
-    n, b = LoraParams(sf=7).n, args.rows
+    b = args.rows or 553_648_128 // n
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     xr = torch.randn(b, n, device=dev, generator=gen)
@@ -127,7 +141,7 @@ def main(argv=None):
         timed = {"torch_sum_both_planes": lambda: (xr.sum(-1), xi.sum(-1))}
         timed.update((name, launcher(lib)) for name, lib in libs.items())
         for name, fn in timed.items():
-            print(json.dumps({"card": card, "round": rnd, "variant": name, "rows": b,
+            print(json.dumps({"card": card, "round": rnd, "variant": name, "n": n, "rows": b,
                               "ms": events_ms(fn)}), flush=True)
 
 
