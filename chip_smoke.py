@@ -176,7 +176,12 @@ Imports no JAX. Phases, one line each (or a few):
    unpacked bit-exact, sync 0x12, one launch per call; the demod against
    plain f32 and fused=True, the kernel alone as in (b), and where its time
    goes (BF16_N32_ABLATIONS: constant planes, no derotation, no prefetch,
-   a division per tile, one block an SM);
+   a division per tile, one block an SM); (g) the same at SF4 (N = 16, the
+   mma.sync kernel with A in registers: 8 x 65,536 frames of 64 four-bit
+   symbols, 553.6 M samples, known zero offsets) and SF6 (N = 64: 8 x
+   19,648 frames of 43 six-bit symbols, 452.7 M samples, the estimator).
+   (b), (f) and (g) count one fused=True call each too (one fused_demod
+   launch, every payload bit-exact);
 20. (a) bench.py on the port (lora_phy_tpu_torch.runners.bench.main, in
    this process) three ways: f32 plain, --fused and --precision=bf16, each
    line printed: rc 0, every value non-null (its decode and coverage gates
@@ -295,6 +300,11 @@ BF16_CPU_FRAMES = 16
 # frames per channel of phase 19 (f)'s SF5 path: 8 x 32,768 frames of 54
 # windows x 32 samples (52 packed symbols and the sync pair), 453.0 M samples
 BF16_SF5_FRAMES = 32768
+# frames per channel of phase 19 (g)'s paths: SF4, 8 x 65,536 frames of 66
+# windows x 16 samples (64 packed symbols and the sync pair), the SF7 main
+# path's 553.6 M samples; SF6, 8 x 19,648 frames of 45 windows x 64 (43
+# packed symbols and the sync pair), 452.7 M samples, about SF5's
+BF16_SF4_FRAMES, BF16_SF6_FRAMES = 65536, 19648
 
 
 # the bf16 decision kernel's (and fused_demod's) launches on each path,
@@ -2818,16 +2828,20 @@ def bf16_ablation(card, label, yr, yi, cr, si, rows_per_rot, ablations):
     return med
 
 
-def bf16_path(dev, card, label, p, channels, frames, path, pack=False):
+def bf16_path(dev, card, label, p, channels, frames, path, pack=False,
+              known_offsets=False):
     """One bf16 decision path at full width: encode -> modulate -> dechirp
     -> demodulate_planar(precision='bf16') -> decode, every payload
     bit-exact, sync 0x12, one kernel launch per call (counted); the demod
-    against plain f32 (and fused=True at N <= 128); the kernel alone, its
-    bound, its plain version and cuBLAS's bf16 GEMM on the same rows; a
-    profile. With ``pack`` the payloads are packed into SF-bit symbols
-    (pack_symbols; modem.encode's 8-bit codewords do not round-trip below
-    SF6) and the demodulated symbols must be the sent ones. Returns the
-    numbers for the JSON line."""
+    against plain f32 and, at N <= 128, fused=True (one fused_demod launch,
+    counted under ``path + '_fused'``, every payload bit-exact); the kernel
+    alone, its bound, its plain version and cuBLAS's bf16 GEMM on the same
+    rows; a profile. With ``pack`` the payloads are packed into SF-bit
+    symbols (pack_symbols; modem.encode's 8-bit codewords do not round-trip
+    below SF6) and the demodulated symbols must be the sent ones. With
+    ``known_offsets`` every demod takes zero offsets instead of the
+    estimator (which reads the sync word, wrapped at N < 32, as an
+    offset). Returns the numbers for the JSON line."""
     pool = torch.from_numpy(np.random.RandomState(p.sf).randint(
         0, 256, (POOL, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
     full = pool.repeat(channels * frames // POOL, 1).reshape(channels, frames, PAYLOAD_LEN)
@@ -2836,11 +2850,16 @@ def bf16_path(dev, card, label, p, channels, frames, path, pack=False):
     xr, xi = planar.dechirp_planar(re, im, p)
     del re, im
     total = xr.numel()
+    zero = torch.zeros(channels, frames, device=dev)
+    known = (zero, zero) if known_offsets else None
+
+    def decode(symbols):
+        return unpack_symbols(symbols, p.sf, PAYLOAD_LEN) if pack else modem.decode(symbols)
+
     torch.cuda.synchronize()
     reset_launches()
-    res = planar.demodulate_planar(xr, xi, p, precision="bf16")
-    decoded = (unpack_symbols(res.symbols, p.sf, PAYLOAD_LEN) if pack
-               else modem.decode(res.symbols))
+    res = planar.demodulate_planar(xr, xi, p, precision="bf16", known_offsets=known)
+    decoded = decode(res.symbols)
     torch.cuda.synchronize()
     fused_n = read_launches(path)
     launches = BF16_BY_PATH[path]
@@ -2851,26 +2870,41 @@ def bf16_path(dev, card, label, p, channels, frames, path, pack=False):
     check(bool((res.sync_word == 0x12).all()), f"{label}: sync word is not 0x12")
     check(bool(torch.isfinite(res.cfo).all() and torch.isfinite(res.time_offset).all()),
           f"{label}: non-finite cfo / time_offset")
-    f32 = planar.demodulate_planar(xr, xi, p)
+    f32 = planar.demodulate_planar(xr, xi, p, known_offsets=known)
     check(torch.equal(res.cfo, f32.cfo) and torch.equal(res.time_offset, f32.time_offset),
           f"{label}: the float32 front's offsets differ between precisions")
-    t_bf16 = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, precision="bf16"))
-    t_f32 = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p))
-    t_fused = (cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, fused=True))
+    if p.n <= 128:
+        torch.cuda.synchronize()
+        reset_launches()
+        fz = planar.demodulate_planar(xr, xi, p, fused=True, known_offsets=known)
+        fz_decoded = decode(fz.symbols)
+        torch.cuda.synchronize()
+        fused_n = read_launches(f"{path}_fused")
+        check(fused_n == 1 and BF16_BY_PATH[f"{path}_fused"] == 0,
+              f"{label}: {fused_n} fused launches in one demodulate_planar(fused=True) call")
+        check(torch.equal(fz_decoded, full), f"{label}: fused=True decoded payloads differ")
+        del fz, fz_decoded
+    t_bf16 = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, precision="bf16",
+                                                      known_offsets=known))
+    t_f32 = cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, known_offsets=known))
+    t_fused = (cuda_ms(lambda: planar.demodulate_planar(xr, xi, p, fused=True,
+                                                        known_offsets=known))
                if p.n <= 128 else None)
     fused_txt = "" if t_fused is None else f", fused=True {t_fused:.3f} ms"
     print(f"{label}: {card}: {channels * frames} frames ({total / 1e6:.1f} M IQ samples"
-          f"{', packed SF-bit symbols, the sent ones back' if pack else ''}) "
+          f"{', packed SF-bit symbols, the sent ones back' if pack else ''}"
+          f"{', known zero offsets' if known_offsets else ''}) "
           f"decoded bit-exact through demodulate_planar(precision='bf16'), sync 0x12, "
           f"{launches} bf16_decide launch per call; precision='bf16' {t_bf16:.3f} ms "
           f"({total / t_bf16 / 1e6:.3f} Gsamples/s), plain f32 {t_f32:.3f} ms{fused_txt}",
           flush=True)
-    profile_once(lambda: planar.demodulate_planar(xr, xi, p, precision="bf16"),
+    profile_once(lambda: planar.demodulate_planar(xr, xi, p, precision="bf16",
+                                                  known_offsets=known),
                  f"{label}: {card}: demodulate_planar(precision='bf16')")
 
     # the kernel alone on the path's own rows and rotation planes
     n = p.n
-    yr, yi, rate, _, scale, _, _ = planar._demod_stage_planar(xr, xi, p, False, None)
+    yr, yi, rate, _, scale, _, _ = planar._demod_stage_planar(xr, xi, p, False, known)
     s_count = yr.shape[-2]
     del xr, xi, res, f32
     cr, si = (t.reshape(-1, n).contiguous() for t in planar._rotation_planes(rate, scale, p))
@@ -2984,7 +3018,7 @@ def phase19c_fourstep(dev, card):
 
 
 def phase19_bf16(dev, card):
-    """Phase 19 (a)-(e); returns the bf16 kernel's record for the JSON line."""
+    """Phase 19 (a)-(g); returns the bf16 kernel's record for the JSON line."""
     phase19a_kernel_vs_plain(dev)
     torch.cuda.empty_cache()
     sf7 = bf16_path(dev, card, "phase 19 (b) SF7", LoraParams(sf=7), CHANNELS, FRAMES,
@@ -2997,7 +3031,12 @@ def phase19_bf16(dev, card):
     torch.cuda.empty_cache()
     sf5 = bf16_path(dev, card, "phase 19 (f) SF5", LoraParams(sf=5), CHANNELS,
                     BF16_SF5_FRAMES, "bf16_sf5", pack=True)
-    paths = {5: sf5, **paths}
+    # (g) SF4 (the N = 16 kernel, known zero offsets) and SF6 (N = 64)
+    sf4 = bf16_path(dev, card, "phase 19 (g) SF4", LoraParams(sf=4), CHANNELS,
+                    BF16_SF4_FRAMES, "bf16_sf4", pack=True, known_offsets=True)
+    sf6 = bf16_path(dev, card, "phase 19 (g) SF6", LoraParams(sf=6), CHANNELS,
+                    BF16_SF6_FRAMES, "bf16_sf6", pack=True)
+    paths = {4: sf4, 5: sf5, 6: sf6, **paths}
     return {"name": "bf16_decide", "route": "cuda",
             "source": "lora_phy_tpu_torch/csrc/bf16_decide.cu",
             # no Pallas kernel: the jnp code XLA fuses for precision="bf16"
@@ -3014,8 +3053,8 @@ def phase19_bf16(dev, card):
             "n32_ablation_ms": sf5["ablation_ms"],
             "demod_ms": {"sf7_bf16": sf7["demod_bf16_ms"], "sf7_f32": sf7["demod_f32_ms"],
                          "sf7_fused": sf7["demod_fused_ms"],
-                         "sf5_bf16": sf5["demod_bf16_ms"], "sf5_f32": sf5["demod_f32_ms"],
-                         "sf5_fused": sf5["demod_fused_ms"],
+                         **{f"sf{sf}_{k}": rec[f"demod_{k}_ms"] for sf, rec in
+                            ((4, sf4), (5, sf5), (6, sf6)) for k in ("bf16", "f32", "fused")},
                          "sf12_bf16": sf12["demod_bf16_ms"], "sf12_f32": sf12["demod_f32_ms"]}}
 
 
@@ -3031,10 +3070,12 @@ BENCH_RUNS = (("f32", []), ("fused", ["--fused"]), ("bf16", ["--precision=bf16"]
 SMALL_N, SMALL_N_SAMPLES = (4, 8, 16, 32, 64), 553_648_128
 # symbol windows per frame (one rotation plane each) of phase 20 (c)
 SMALL_N_WINDOWS = 2 * PAYLOAD_LEN + 2
-# the path that reaches each kernel at N < 128: phase 2's SF2-4 demods
-# (fused_demod), phase 19 (f)'s SF5 demod (bf16_decide)
-SMALL_SF_PATH = {4: "small_sf2", 8: "small_sf3", 16: "small_sf4"}
-BF16_SMALL_PATH = {32: "bf16_sf5"}
+# the paths that reach each kernel at N < 128: phase 2's SF2-4 demods and
+# the counted fused=True calls of phase 19 (f), (g) (fused_demod), phase 19
+# (f), (g)'s SF4-6 demods (bf16_decide)
+SMALL_SF_PATH = {4: ("small_sf2",), 8: ("small_sf3",), 16: ("small_sf4", "bf16_sf4_fused"),
+                 32: ("bf16_sf5_fused",), 64: ("bf16_sf6_fused",)}
+BF16_SMALL_PATH = {16: ("bf16_sf4",), 32: ("bf16_sf5",), 64: ("bf16_sf6",)}
 
 
 def phase20a_bench(dev, card):
@@ -3274,13 +3315,15 @@ def phase20c_small_n(dev, card):
         a = phase20c_fused_row(dev, card, gen, n, Window.NONE)
         b = phase20c_fused_row(dev, card, gen, n, Window.HANN)
         fused_rows[str(n)] = {**a, "ms_hann": b["ms"], "bound_ms_hann": b["bound_ms"],
-                              "launches": FUSED_BY_PATH.get(SMALL_SF_PATH.get(n), 0)}
+                              "launches": sum(FUSED_BY_PATH.get(path, 0)
+                                              for path in SMALL_SF_PATH.get(n, ()))}
         a = phase20c_bf16_row(dev, card, gen, n, True)
         b = phase20c_bf16_row(dev, card, gen, n, False)
         bf16_rows[str(n)] = {**a, "ms_no_rotation": b["ms"],
                              "bound_ms_no_rotation": b["bound_ms"],
                              "library_ms_no_rotation": b["library_ms"],
-                             "launches": BF16_BY_PATH.get(BF16_SMALL_PATH.get(n), 0),
+                             "launches": sum(BF16_BY_PATH.get(path, 0)
+                                             for path in BF16_SMALL_PATH.get(n, ())),
                              "design": bf16.design(n)}
     return fused_rows, bf16_rows
 

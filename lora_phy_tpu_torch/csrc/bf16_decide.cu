@@ -125,7 +125,26 @@
 // product round trips), which 4096-sample tiles spread; at N >= 2048 a
 // third warpgroup beat two with the twiddles in registers.
 //
-// N = 4, 8, 16 (bf16_decide_direct) stay on mma.sync.m16n8k16: a block
+// N = 16 (bf16_decide_n16): mma.sync.m16n8k16 with A from registers;
+// every warp walks its own 32-row tasks (two m16 tiles) of a persistent
+// grid, with no barrier. The host permutes k as for wgmma, so a thread
+// (g, t) needs of each tile's rows g and g + 8 one float4 per plane at
+// column 4t (a warp's eight rows are 512 contiguous bytes). It copies
+// exactly those float4s (and its rows' rotation-plane float4s, found by
+// RotIndex adds) with cp.async into a two-stage ring of its own in shared
+// memory, so the next task is in flight under this task's products and
+// epilogue and a wait on its own copies is the only synchronisation. It
+// derotates them op by op and rounds them straight into its bf16x2 A
+// registers; B (Wr^T, Wi^T: two n-tiles each, 8 registers) is loaded once.
+// A row's 16 bins lie in one quad, so two shuffles finish its argmax and
+// one lane writes it. On an H100 (PERF.md section 6; tools/
+// torch_kernel_resources.py --compare in turns on phase 20 (c)'s rows,
+// against bf16_decide_direct<16>, which served N = 16 before) the next
+// task's loads held in registers instead (96 registers rotated, two blocks
+// an SM) took 0.912 of its time rotated and 1.011 unrotated; this ring
+// takes 0.901 and 0.994.
+//
+// N = 4, 8 (bf16_decide_direct) stay on mma.sync.m16n8k16: a block
 // walks tiles of rows; per tile it loads the f32 rows (float4), derotates
 // and rounds them to bf16 into shared memory, then each warp runs
 // mma.sync on a 16-row task with the tables resident in shared memory,
@@ -266,7 +285,7 @@ __device__ __forceinline__ void stage_table(const __nv_bfloat16* __restrict__ sr
 }
 
 // ---------------------------------------------------------------------------
-// N <= 128: one combined product per tile of R rows
+// N = 4, 8: one combined product per tile of R rows
 // ---------------------------------------------------------------------------
 
 template <int N>
@@ -469,6 +488,16 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// this thread's cp.async groups but the newest kPending have landed
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// 16 bytes global -> shared through L1, asynchronous
+__device__ __forceinline__ void cp_async16_ca(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
 // a barrier of the 128 threads of warpgroup `wg` (named barrier 1 + wg)
 __device__ __forceinline__ void wg_barrier(int wg) {
@@ -750,6 +779,174 @@ bf16_decide_wgmma(const float* __restrict__ yr, const float* __restrict__ yi,
       if (row1 < rows) {
         out[row1] = bk[1];
         if (peak != nullptr) peak[row1] = bv[1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// N = 16: mma.sync with A from registers, one warp per 32-row task, rows
+// through a cp.async ring of each thread's own
+// ---------------------------------------------------------------------------
+
+constexpr int kN16Warps = 8;              // warps per block, each on its own tasks
+constexpr int kN16Tiles = 2;              // m16 tiles per task
+constexpr int kN16Rows = 16 * kN16Tiles;  // rows per task
+constexpr int kN16Stages = 2;             // ring stages: one task in flight
+
+template <bool kRot>
+struct N16 {
+  // float4 per thread per stage: (tile, row half) x (yr, yi[, cr, si])
+  static constexpr int kPlanes = kRot ? 4 : 2;
+  static constexpr int kPer = 2 * kN16Tiles * kPlanes;
+  static constexpr size_t kSmem = sizeof(float4) * kN16Stages * kPer * 32 * kN16Warps;
+};
+
+template <bool kRot>
+__global__ void __launch_bounds__(32 * kN16Warps)
+bf16_decide_n16(const float* __restrict__ yr, const float* __restrict__ yi,
+                const float* __restrict__ cr, const float* __restrict__ si, long long rows,
+                long long rows_per_rot, const __nv_bfloat16* __restrict__ wr,
+                const __nv_bfloat16* __restrict__ wi, int* __restrict__ out,
+                float* __restrict__ peak) {
+  using C = N16<kRot>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's ring: float4 k of stage s at ring[(s * kPer + k) * 32], so
+  // a warp's copies and reads of one k are 512 contiguous bytes
+  float4* ring = reinterpret_cast<float4*>(smem) +
+                 (threadIdx.x >> 5) * (kN16Stages * C::kPer * 32) + lane;
+  // warp w walks tasks w, w + W, ... (W warps in the grid)
+  const long long tasks = (rows + kN16Rows - 1) / kN16Rows;
+  const long long stride = static_cast<long long>(gridDim.x) * kN16Warps;
+  const long long task = static_cast<long long>(blockIdx.x) * kN16Warps + (threadIdx.x >> 5);
+  if (task >= tasks) return;
+
+  // B of n-tile j: bin 8j + g, k slots 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1)
+  // of the [bin][16] tables
+  uint32_t br[2][2], bi[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int off = (8 * j + g) * 16 + 2 * t;
+    br[j][0] = __ldg(reinterpret_cast<const unsigned int*>(wr + off));
+    br[j][1] = __ldg(reinterpret_cast<const unsigned int*>(wr + off + 8));
+    bi[j][0] = __ldg(reinterpret_cast<const unsigned int*>(wi + off));
+    bi[j][1] = __ldg(reinterpret_cast<const unsigned int*>(wi + off + 8));
+  }
+
+  // Row half k (tile k / 2) of a task holds this thread's row 8k + g. The
+  // rotation rows of the next task to copy move on by adds; rows past the
+  // end copy the last row (their results are never written).
+  const long long step = stride * kN16Rows, last = rows - 1;
+  const long long last_rot = kRot ? last / rows_per_rot : 0;
+  RotIndex rot[2 * kN16Tiles], d{0, 0};
+  if (kRot) {
+#pragma unroll
+    for (int k = 0; k < 2 * kN16Tiles; ++k)
+      rot[k] = RotIndex::at(task * kN16Rows + 8 * k + g, rows_per_rot);
+    d = RotIndex::at(step, rows_per_rot);
+  }
+  // Copy the next task into the next stage, one commit group (empty past
+  // the last task). A thread reads back only what it copied, so a wait
+  // on its own groups is all the synchronisation there is.
+  long long next = task;
+  int s_next = 0;
+  auto copy_next = [&]() {
+    if (next < tasks) {
+#pragma unroll
+      for (int k = 0; k < 2 * kN16Tiles; ++k) {
+        const long long row = next * kN16Rows + 8 * k + g;
+        const long long r = row < rows ? row : last;
+        float* dst = reinterpret_cast<float*>(ring + (s_next * C::kPer + k * C::kPlanes) * 32);
+        cp_async16(dst, yr + r * 16 + 4 * t, true);
+        cp_async16(dst + 128, yi + r * 16 + 4 * t, true);
+        if (kRot) {  // through L1: the frame's other rows read them again
+          const long long q = row < rows ? rot[k].q : last_rot;
+          cp_async16_ca(dst + 256, cr + q * 16 + 4 * t);
+          cp_async16_ca(dst + 384, si + q * 16 + 4 * t);
+          rot[k] = rot[k].advanced(d, rows_per_rot);
+        }
+      }
+    }
+    cp_async_commit();
+    next += stride;
+    s_next = s_next + 1 == kN16Stages ? 0 : s_next + 1;
+  };
+#pragma unroll
+  for (int i = 0; i < kN16Stages - 1; ++i) copy_next();
+
+  int s_cur = 0;
+  for (long long tk = task; tk < tasks; tk += stride) {
+    // the task kN16Stages - 1 ahead in flight, then this one's copies landed
+    copy_next();
+    cp_async_wait<kN16Stages - 1>();
+    const float4* st = ring + s_cur * C::kPer * 32;
+    s_cur = s_cur + 1 == kN16Stages ? 0 : s_cur + 1;
+#pragma unroll
+    for (int m = 0; m < kN16Tiles; ++m) {
+      // rows g and g + 8 of tile m: derotated op by op, rounded straight
+      // into the A registers
+      const float4* e0 = st + 2 * m * C::kPlanes * 32;
+      const float4* e1 = e0 + C::kPlanes * 32;
+      Quad q0, q1;
+      q0.yr = e0[0];
+      q0.yi = e0[32];
+      q1.yr = e1[0];
+      q1.yi = e1[32];
+      if (kRot) {
+        q0.c = e0[64];
+        q0.s = e0[96];
+        q1.c = e1[64];
+        q1.s = e1[96];
+      }
+      uint32_t ar[4], ai[4], nai[4];
+      quad_fragment<kRot>(q0, ar[0], ar[2], ai[0], ai[2]);
+      quad_fragment<kRot>(q1, ar[1], ar[3], ai[1], ai[3]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) nai[q] = ai[q] ^ 0x80008000u;  // -fi, exactly
+      float acc_r[2][4], acc_i[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc_r[j][c] = acc_i[j][c] = 0.0f;
+        mma_bf16(acc_r[j], ar, br[j][0], br[j][1]);   // fr @ Wr
+        mma_bf16(acc_r[j], nai, bi[j][0], bi[j][1]);  // - fi @ Wi
+        mma_bf16(acc_i[j], ar, bi[j][0], bi[j][1]);   // fr @ Wi
+        mma_bf16(acc_i[j], ai, br[j][0], br[j][1]);   // fi @ Wr
+      }
+
+      // |.|^2 and each row's best bin: element c of n-tile j is row g +
+      // 8 (c >> 1), bin 8j + 2t + (c & 1); a thread meets its bins in
+      // increasing order, so a strict > keeps the first maximum
+      float bv[2] = {neg_inf(), neg_inf()};
+      int bk[2] = {16, 16};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float v = mag2(acc_r[j][c], acc_i[j][c]);
+          if (v > bv[c >> 1]) {
+            bv[c >> 1] = v;
+            bk[c >> 1] = 8 * j + 2 * t + (c & 1);
+          }
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv[h], off);
+          const int ok = __shfl_xor_sync(0xffffffffu, bk[h], off);
+          take_max(bv[h], bk[h], ov, ok);
+        }
+      // every lane of a quad holds its rows' results: lane t = 0 writes row
+      // g, t = 1 row g + 8
+      if (t < 2) {
+        const long long row = tk * kN16Rows + 16 * m + 8 * t + g;
+        if (row < rows) {
+          out[row] = t == 0 ? bk[0] : bk[1];
+          if (peak != nullptr) peak[row] = t == 0 ? bv[0] : bv[1];
+        }
       }
     }
   }
@@ -1172,6 +1369,23 @@ int launch_direct(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kRot>
+int launch_n16(const Args& a) {
+  static std::atomic<long long> cache[64];
+  auto kernel = bf16_decide_n16<kRot>;
+  constexpr int threads = 32 * kN16Warps;
+  constexpr size_t smem = N16<kRot>::kSmem;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(kernel, threads, smem, cache, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tasks = (a.rows + kN16Rows - 1) / kN16Rows;
+  const long long groups = (tasks + kN16Warps - 1) / kN16Warps;
+  const long long blocks = groups < resident ? groups : resident;
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, a.stream>>>(
+      a.yr, a.yi, a.cr, a.si, a.rows, a.rows_per_rot, a.wa_r, a.wa_i, a.out, a.peak);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int N, bool kRot>
 int launch_wgmma(const Args& a) {
   static std::atomic<long long> cache[64];
@@ -1210,7 +1424,7 @@ int dispatch(int n, const Args& a) {
   switch (n) {
     case 4: return launch_direct<4, kRot>(a);
     case 8: return launch_direct<8, kRot>(a);
-    case 16: return launch_direct<16, kRot>(a);
+    case 16: return launch_n16<kRot>(a);
     case 32: return launch_wgmma<32, kRot>(a);
     case 64: return launch_wgmma<64, kRot>(a);
     case 128: return launch_wgmma<128, kRot>(a);
@@ -1230,7 +1444,8 @@ int dispatch(int n, const Args& a) {
 // planes or both null (no derotation); row r uses rotation
 // r / rows_per_rot. wa_r, wa_i: the bf16 DFT tables Wr, Wi transposed,
 // [bin][k] — for n = 32..128 [n][n] in the wgmma layout
-// (ops/bf16_decide.py::wgmma_layout), for n = 4..16 [max(n, 8)][max(n, 16)]
+// (ops/bf16_decide.py::wgmma_layout), for n = 16 [16][16] with k permuted
+// as in it (ops/bf16_decide.py::_wgmma_columns), for n = 4, 8 [8][16]
 // zero-padded, for n > 128 stage 1's [n2][n2] in the layout without the k
 // permutation; wb_r, wb_i: stage 2's [n1][n1] in it (null for n <= 128);
 // twr, twi: the f32 twiddles, [64 n2] in the order of

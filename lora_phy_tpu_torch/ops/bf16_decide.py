@@ -41,7 +41,9 @@ LAUNCHES = 0
 KERNEL_N = tuple(1 << sf for sf in range(2, 13))
 # N served by the wgmma design (A from registers, tables in the layout of
 # wgmma_layout), and by the four-step on wgmma (both operands from shared
-# memory); N <= 16 runs mma.sync
+# memory); N = 16 runs mma.sync with A from registers (k permuted as for
+# wgmma, one warp a 32-row task), N = 4, 8 mma.sync through shared memory
+N16_N = 16
 WGMMA_N = (32, 64, 128)
 FOURSTEP_N = (256, 512, 1024, 2048, 4096)
 # the four-step's tiling (Fs<n1, n2> in csrc/bf16_decide.cu): N -> (frame
@@ -53,9 +55,12 @@ FOURSTEP_TILE = {256: (16, 2, 2), 512: (4, 2, 2), 1024: (2, 2, 2), 2048: (2, 3, 
 
 def design(n: int) -> str:
     """The kernel design that serves N: ``"wgmma"`` (N = 32, 64, 128),
-    ``"wgmma-fourstep"`` (N = 256..4096) or ``"mma.sync"`` (N <= 16)."""
+    ``"wgmma-fourstep"`` (N = 256..4096), ``"mma.sync-warp"`` (N = 16: A
+    from registers, one warp a task) or ``"mma.sync"`` (N = 4, 8)."""
     if n in WGMMA_N:
         return "wgmma"
+    if n == N16_N:
+        return "mma.sync-warp"
     return "wgmma-fourstep" if n in FOURSTEP_N else "mma.sync"
 
 
@@ -110,10 +115,11 @@ def _pair_tables(m: np.ndarray, k: int, kp: int, np_: int):
 
 
 def _wgmma_columns(k: int) -> np.ndarray:
-    """Column of the [bins, k] table held at each k slot of the wgmma
-    tables: in k-step s (slots 16s..16s+15), slots 2t, 2t+1, 2t+8, 2t+9
-    of the A fragment take columns 16s + 4t .. 16s + 4t + 3, so that a
-    thread reads its four samples of a row as one float4."""
+    """Column of the [bins, k] table held at each k slot of the tables of
+    the kernels whose A comes from registers (wgmma at N = 32..128, the
+    N = 16 mma.sync kernel): in k-step s (slots 16s..16s+15), slots 2t,
+    2t+1, 2t+8, 2t+9 of the A fragment take columns 16s + 4t .. 16s + 4t
+    + 3, so that a thread reads its four samples of a row as one float4."""
     p = np.arange(k) % 16
     return (np.arange(k) // 16) * 16 + 4 * ((p % 8) // 2) + 2 * (p // 8) + p % 2
 
@@ -171,7 +177,9 @@ def _kernel_tables(n: int, device: torch.device):
     version's ``_mm`` rounds to), and for N > 128 the stage-2 tables and the
     float32 twiddles. ``(wa_r, wa_i, wb_r, wb_i, twr, twi)``, None where the
     N <= 128 kernel takes nothing. At N in :data:`WGMMA_N` the tables are
-    flat [N * N] in :func:`wgmma_layout`'s order; at N > 128 flat [n2 * n2]
+    flat [N * N] in :func:`wgmma_layout`'s order; at N = 16 [16, 16] with k
+    permuted by :func:`_wgmma_columns`; at N = 4, 8 [8, 16] zero-padded;
+    at N > 128 flat [n2 * n2]
     (stage 1) and [n1 * n1] (stage 2) in ``wgmma_layout(permute=False)``'s,
     and the twiddles flat [64 * n2] in :func:`fourstep_twiddles`'."""
     def bf16(a):
@@ -180,6 +188,10 @@ def _kernel_tables(n: int, device: torch.device):
     if n in WGMMA_N:
         wa = _pair_tables(planar._combined_dft_mat(n), n, n, n)
         return bf16(wgmma_layout(wa[0])), bf16(wgmma_layout(wa[1])), None, None, None, None
+    if n == N16_N:
+        wa = _pair_tables(planar._combined_dft_mat(n), n, n, n)
+        cols = _wgmma_columns(n)
+        return bf16(wa[0][:, cols]), bf16(wa[1][:, cols]), None, None, None, None
     if n <= 128:
         wa = _pair_tables(planar._combined_dft_mat(n), n, max(n, 16), max(n, 8))
         return bf16(wa[0]), bf16(wa[1]), None, None, None, None

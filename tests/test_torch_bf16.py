@@ -139,18 +139,20 @@ def _pack_symbols(payloads, sf):
     return (bits << np.arange(sf)).sum(-1).astype(np.int32)
 
 
-# SF5 and SF6 carry packed symbols: modem.encode's 8-bit codewords do not
-# round-trip at SF5 in either package (ROADMAP Queue 3)
-PACKED_CASES = [(5, None), (5, -3.0), (6, None), (6, -3.0)]
+# SF4-6 carry packed symbols: modem.encode's 8-bit codewords do not
+# round-trip at SF5 in either package (ROADMAP Queue 3); SF4 takes known
+# zero offsets, since the estimator reads the wrapped sync word at N < 32
+# as an offset in both packages
+PACKED_CASES = [(4, None), (4, -3.0), (5, None), (5, -3.0), (6, None), (6, -3.0)]
 
 
 @pytest.mark.parametrize("sf,snr_db", PACKED_CASES)
 def test_demodulate_planar_bf16_packed_vs_jax(sf, snr_db):
-    """precision='bf16' at SF5 and SF6 on payloads packed into SF-bit
-    symbols, with the estimator (no known offsets), clean and under numpy
-    AWGN: symbols and sync equal to JAX's, cfo / time_offset within the
-    float32 tolerances; the clean loopback returns the sent symbols and
-    sync 0x12."""
+    """precision='bf16' at SF4-6 on payloads packed into SF-bit symbols,
+    with the estimator at SF5 and SF6 and known zero offsets (given to
+    both packages) at SF4, clean and under numpy AWGN: symbols and sync
+    equal to JAX's, cfo / time_offset within the float32 tolerances; the
+    clean loopback returns the sent symbols and sync 0x12."""
     p = LoraParams(sf=sf)
     tp = tparams(p)
     rng = np.random.RandomState(50 + sf)
@@ -161,8 +163,11 @@ def test_demodulate_planar_bf16_packed_vs_jax(sf, snr_db):
         sigma = np.sqrt(0.5 * 10.0 ** (-snr_db / 10.0))
         dech = dech + sigma * (rng.randn(*dech.shape) + 1j * rng.randn(*dech.shape))
     xr, xi = jplanar.split_complex(dech.astype(np.complex64))
-    ref = jplanar.demodulate_planar(xr, xi, p, precision="bf16")
-    got = tplanar.demodulate_planar(tt(xr), tt(xi), tp, precision="bf16")
+    zero = np.zeros(3, np.float32)
+    known = (zero, zero) if sf == 4 else None
+    ref = jplanar.demodulate_planar(xr, xi, p, precision="bf16", known_offsets=known)
+    got = tplanar.demodulate_planar(tt(xr), tt(xi), tp, precision="bf16", known_offsets=(
+        None if known is None else (tt(zero), tt(zero))))
     np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
     np.testing.assert_array_equal(nn(got.sync_word), nn(ref.sync_word))
     np.testing.assert_allclose(nn(got.cfo), nn(ref.cfo), rtol=0, atol=CFO_ATOL)
@@ -365,9 +370,10 @@ def test_kernel_tables_are_the_plain_versions_bits():
     """The kernel's bf16 tables are torch's rounding of the port's float32
     builders, transposed and zero-padded (N < 16), so kernel and plain
     version multiply the same bits; the twiddles are the float32 ones.
-    (N = 32..128: test_wgmma_tables_are_the_plain_versions_bits; N > 128,
-    in the four-step's layouts: test_fourstep_tables_are_the_plain_versions_bits.)"""
-    for n in (4, 8, 16):
+    (N = 16, k permuted: test_n16_tables_are_the_plain_versions_bits; N =
+    32..128: test_wgmma_tables_are_the_plain_versions_bits; N > 128, in the
+    four-step's layouts: test_fourstep_tables_are_the_plain_versions_bits.)"""
+    for n in (4, 8):
         wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
         m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
         assert wr.shape == (max(n, 8), max(n, 16)) and wr.dtype == BF16
@@ -448,6 +454,28 @@ def test_wgmma_tables_are_the_plain_versions_bits(n):
     assert [cols[q] for q in (0, 1, 2, 8, 9)] == [0, 1, 4, 2, 3]
 
 
+def test_n16_tables_are_the_plain_versions_bits():
+    """At N = 16 the kernel's tables are [16, 16] bf16, Wr^T and Wi^T with
+    k permuted by _wgmma_columns: un-permuted they are _pair_tables' bits
+    exactly, and the registers a thread (g, t) loads for n-tile j (bin 8j +
+    g, slots 2t, 2t + 1 and 2t + 8, 2t + 9) hold the weights of its float4's
+    columns 4t .. 4t + 3 in that order."""
+    n = tbf16.N16_N
+    wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
+    assert wr.shape == (n, n) and wr.dtype == BF16 and wbr is None and twr is None
+    m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
+    cols = tbf16._wgmma_columns(n)
+    assert sorted(cols.tolist()) == list(range(n))
+    for got, want in ((wr, m[:n, :n].T), (wi, m[:n, n:].T)):
+        back = torch.empty_like(got)
+        back[:, torch.from_numpy(cols)] = got
+        torch.testing.assert_close(back, want.contiguous(), rtol=0, atol=0)
+        for j, g, t in ((0, 0, 0), (1, 7, 3), (0, 5, 2), (1, 2, 1)):
+            b = 8 * j + g
+            slots = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+            torch.testing.assert_close(got[b, slots], want[b, 4 * t:4 * t + 4], rtol=0, atol=0)
+
+
 def test_chip_smoke_ablations_find_their_anchors():
     """Each of chip_smoke.py's copies of bf16_decide.cu (phase 19 (f), (b)
     and (c): where the wgmma kernel's time goes at N = 32 and N = 128, and
@@ -472,9 +500,9 @@ def test_chip_smoke_ablations_find_their_anchors():
 
 def test_kernel_design_per_n():
     """N = 32, 64, 128 run the wgmma design, N = 256..4096 the four-step on
-    wgmma, N <= 16 mma.sync."""
+    wgmma, N = 16 mma.sync with A from registers, N = 4, 8 mma.sync."""
     assert [tbf16.design(n) for n in tbf16.KERNEL_N] == (
-        ["mma.sync"] * 3 + ["wgmma"] * 3 + ["wgmma-fourstep"] * 5)
+        ["mma.sync"] * 2 + ["mma.sync-warp"] + ["wgmma"] * 3 + ["wgmma-fourstep"] * 5)
 
 
 @pytest.mark.parametrize("n", tbf16.FOURSTEP_N)
@@ -559,3 +587,42 @@ def test_cuda_kernel_matches_plain_version(sf):
         assert tbf16.LAUNCHES == launches + 1
         np.testing.assert_array_equal(nn(res.symbols), syms)
         assert (nn(res.sync_word) == 0x12).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames,rows_per_rot", [(1, 5), (3, 7), (37, 3), (101, 66), (0, 1),
+                                                 (0, 3), (0, 66)])
+def test_cuda_n16_kernel_walks_tasks(frames, rows_per_rot):
+    """The N = 16 kernel (one warp a 32-row task, the next task's copies in
+    flight, rotation rows by adds) against its plain version on the card,
+    with and without rotation: row counts that are no multiple of 16 (so
+    none of a task), fewer than a task too, with rotation rows that cross
+    tile and task boundaries, the last task partly past the rows; frames 0
+    stands for just over 64 x 16 x SMs rows (more than the resident warps
+    take in one task each), so every warp walks on and carries its
+    rotation index. Bins differ only within near_tie(16), peaks within it
+    relative; one launch a call."""
+    dev = cuda_device()
+    p = LoraParams(sf=4)
+    n = p.n
+    if frames == 0:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        frames = 64 * 16 * sms // rows_per_rot + 1
+    assert (frames * rows_per_rot) % 16
+    yr, yi, rate, scale = _rotation_case(p, rows_per_rot, frames, seed=frames + rows_per_rot)
+    yr, yi = tt(yr).reshape(-1, n).to(dev), tt(yi).reshape(-1, n).to(dev)
+    cr, si = tplanar._rotation_planes(tt(rate).to(dev), tt(scale).to(dev), tparams(p))
+    for rot in ((cr.contiguous(), si.contiguous()), (None, None)):
+        launches = tbf16.LAUNCHES
+        k, kp = tbf16.bf16_decide_rows(yr, yi, n, *rot, rows_per_rot=rows_per_rot,
+                                       with_peak=True)
+        assert tbf16.LAUNCHES == launches + 1
+        r, rp = tbf16.bf16_decide_rows_reference(yr, yi, n, *rot, rows_per_rot=rows_per_rot,
+                                                 with_peak=True)
+        differ = (k != r).nonzero().flatten()
+        if differ.numel():
+            fr, fi = tbf16._derotate(yr, yi, n, *rot, rows_per_rot)
+            top2 = tplanar.dft_mag2_planar(fr[differ], fi[differ], n,
+                                           mxu_dtype=BF16).topk(2, dim=-1).values
+            assert bool(((top2[:, 0] - top2[:, 1]) <= tbf16.near_tie(n) * top2[:, 0]).all())
+        torch.testing.assert_close(kp, rp, rtol=tbf16.near_tie(n), atol=0)
