@@ -198,7 +198,22 @@ Imports no JAX. Phases, one line each (or a few):
    amplitude the call takes out: bins equal to the plain version's outside
    near-ties and at the tones' bins; time, bound and share, the plain
    version's time and the library yardstick's (cuFFT's DFT alone, cuBLAS's
-   bf16 GEMM alone).
+   bf16 GEMM alone);
+21. the repo-level twins of the files that drive the JAX package: (a)
+   torch_graft_entry.entry's forward on the card, its decisions equal to
+   the same forward on the CPU, the payloads back, sync 0x12, its CUDA-event
+   ms; (b) torch_graft_entry.dryrun_multichip(8) on 8 shards of the card
+   (the streaming demod planar and complex, the seam-straddling scan,
+   wideband, SIC, blind SF, adaptive, soft, robust), its 8 lines equal to
+   the CPU's; (c) examples/torch_end_to_end.py and
+   examples/torch_mesh_gateway.py, each run in this process on the card
+   (its launches counted) and as a script with --device=cuda:0 and
+   --device=cpu, the scripts at once, stdout equal (the gateway's
+   checkpoint path aside); (d) the sweep twins at one cell each (the soft
+   waterfall's losses, the sync sweep's cell plain and --soft) on draws
+   made on the CPU from a seed, counts on the card equal to the CPU's.
+   Both kernels' launches are counted on every path (0: none reaches
+   them).
 
 Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
@@ -561,8 +576,12 @@ def main():
     phase20b_stage_profile(dev, card)
     torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase21_repo_twins(dev, card)
+    print(f"phase 21: {card}: {time.perf_counter() - t0:.2f} s in all", flush=True)
     other.update({k: v for k, v in FUSED_BY_PATH.items()
-                  if k.startswith(("bf16_", "bench_", "block_profile"))})
+                  if k.startswith(("bf16_", "bench_", "block_profile", "twin_"))})
 
     check("jax" not in sys.modules, "the port imported JAX")
     # every path but the main and coded ones reaches no fused_demod launch
@@ -3388,6 +3407,169 @@ def mesh_worker(rank, nproc, addr, backend):
           f"{fused.LAUNCHES} bf16_launches={bf16.LAUNCHES}", flush=True)
     torch.distributed.destroy_process_group()
     return 0
+
+
+# the examples phase 21 (c) runs as scripts, each on the card and on the CPU
+TWIN_EXAMPLES = ("examples/torch_end_to_end.py", "examples/torch_mesh_gateway.py")
+# phase 21 (d)'s cells: the waterfall's (CR, SNR dB, frames) and the sync
+# sweep's (SF, SNR dB, trials, chunk)
+TWIN_WATERFALL_CELL = (4, -10.0, 64)
+TWIN_SYNC_CELL = (7, -9, 16, 8)
+
+
+def load_tool(rel):
+    """A script of the repository (``tools/*.py``) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(pathlib.Path(rel).stem, REPO / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase21_repo_twins(dev, card):
+    """The repo-level twins on the card: (a) torch_graft_entry.entry's
+    forward, (b) its dryrun_multichip(8) on 8 shards of the card, (c) both
+    example twins in this process on the card and as scripts on the card
+    and on the CPU, (d) each sweep
+    twin at one cell on injected noise, card against CPU. Every path's
+    launches are counted (0 for both kernels: none reaches them)."""
+    import torch_graft_entry as graft
+
+    paths = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = time.perf_counter() - t0
+        read_launches(name)
+        return out
+
+    # (a) the entry's single-card forward: decisions equal to the CPU's,
+    # the payloads back, sync 0x12
+    def entry():
+        fwd, planes = graft.entry(device=dev)
+        return fwd, planes, fwd(*planes)
+
+    fwd, (xr, xi), (syms, sync) = counted("twin_entry", entry)
+    cfwd, (cxr, cxi) = graft.entry(device="cpu")
+    csyms, csync = cfwd(cxr, cxi)
+    check(torch.equal(syms.cpu(), csyms) and torch.equal(sync.cpu(), csync),
+          "phase 21 (a): entry's decisions differ between the card and the CPU")
+    payloads = np.random.RandomState(0).randint(0, 256, (2, 8)).astype(np.uint8)
+    check(np.array_equal(modem.decode(syms).cpu().numpy(), payloads),
+          "phase 21 (a): entry's payloads do not decode")
+    check(bool((sync == 0x12).all()), "phase 21 (a): sync word is not 0x12")
+    fwd_ms = cuda_ms(lambda: fwd(xr, xi))
+    print(f"phase 21 (a): {card}: torch_graft_entry.entry forward (2 x 8 bytes, SF7, "
+          f"{tuple(xr.shape)} planes): decisions equal to the CPU's, payloads bit-exact, sync "
+          f"0x12; {fwd_ms:.3f} ms a forward (CUDA events); entry + first forward "
+          f"{paths['twin_entry']:.2f} s host clock", flush=True)
+
+    # (b) the dryrun on 8 shards of the card: its lines, equal to the CPU's
+    def dryrun(device):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            graft.dryrun_multichip(8, device=device)
+        return out.getvalue().splitlines()
+
+    lines = counted("twin_dryrun", lambda: dryrun(dev))
+    t0 = time.perf_counter()
+    cpu_lines = dryrun("cpu")
+    cpu_s = time.perf_counter() - t0
+    check(len(lines) == 8 and lines[-1].startswith("dryrun_multichip OK: mesh=4x2 (8 devices)"),
+          f"phase 21 (b): dryrun lines {lines}")
+    check(lines == cpu_lines, f"phase 21 (b): card lines {lines} against CPU {cpu_lines}")
+    for line in lines:
+        print(f"phase 21 (b): {line}", flush=True)
+    print(f"phase 21 (b): {card}: dryrun_multichip(8) on 8 shards of the card "
+          f"{paths['twin_dryrun']:.2f} s host clock (the CPU's 8 shards {cpu_s:.2f} s), "
+          "lines equal to the CPU's", flush=True)
+
+    # (c) the examples: each run in this process on the card, its launches
+    # counted, then as a script on the card and on the CPU, all four at once
+    def strip_ckpt(text):
+        # the gateway's checkpoint lies in a fresh temporary directory per run
+        return [line.split(" checkpointed to ")[0] for line in text.splitlines()]
+
+    def in_process(rel):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(load_tool(rel).main([f"--device={dev}"]) == 0, f"phase 21 (c) {rel}: rc")
+        return strip_ckpt(out.getvalue())
+
+    got = {rel: counted("twin_" + pathlib.Path(rel).stem.removeprefix("torch_"),
+                        lambda: in_process(rel)) for rel in TWIN_EXAMPLES}
+    runs = [(rel, d) for rel in TWIN_EXAMPLES for d in (str(dev), "cpu")]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / rel), f"--device={d}"], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for rel, d in runs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    for (rel, d), proc, (out, err) in zip(runs, procs, outs):
+        check(proc.returncode == 0, f"phase 21 (c) {rel} --device={d}: rc "
+              f"{proc.returncode}: {err[-2000:]}")
+        check(strip_ckpt(out) == got[rel], f"phase 21 (c) {rel} --device={d}: stdout "
+              f"{strip_ckpt(out)} against the card's in-process run {got[rel]}")
+    for rel in TWIN_EXAMPLES:
+        name = "twin_" + pathlib.Path(rel).stem.removeprefix("torch_")
+        print(f"phase 21 (c): {rel} --device={dev}: {len(got[rel])} lines, in this process "
+              f"({paths[name]:.2f} s host clock) and as a script, equal to --device=cpu's "
+              f"(the checkpoint path aside); last: {got[rel][-1]}", flush=True)
+    print(f"phase 21 (c): {card}: the four script runs at once {wall:.2f} s host clock",
+          flush=True)
+
+    # (d) each sweep twin at one cell: counts on the card equal the CPU's on
+    # the same injected draws (made on the CPU from a seed)
+    waterfall = load_tool("tools/torch_soft_waterfall_sweep.py")
+    sweep = load_tool("tools/torch_sync_sensitivity_sweep.py")
+    cr, snr, frames = TWIN_WATERFALL_CELL
+    n_sym = coded.payload_symbol_count(12, coded.CodedConfig(sf=7, cr=cr))
+    gen = torch.Generator().manual_seed(21)
+    draws = tuple(torch.randn((frames, (n_sym + 2) * 128), generator=gen) for _ in range(2))
+    w_card = counted("twin_waterfall", lambda: waterfall.losses(
+        cr, snr, frames, device=dev, noise=draws))
+    w_cpu = waterfall.losses(cr, snr, frames, device="cpu", noise=draws)
+    check(w_card == w_cpu, f"phase 21 (d): waterfall {w_card} on the card, {w_cpu} on the CPU")
+
+    def sync_noise(sf, snr_db, ci, b, t):
+        g = torch.Generator().manual_seed(sf * 1000003 + (snr_db + 64) * 911 + ci)
+        return torch.randn((b, t), generator=g), torch.randn((b, t), generator=g)
+
+    sf, s_snr, trials, chunk = TWIN_SYNC_CELL
+    sync_counts = {}
+    for soft_mode in (False, True):
+        name = "twin_sync_sweep" + ("_soft" if soft_mode else "")
+        on_card = counted(name, lambda: sweep.cell(sf, s_snr, trials, chunk, soft=soft_mode,
+                                                   device=dev, noise=sync_noise))
+        on_cpu = sweep.cell(sf, s_snr, trials, chunk, soft=soft_mode, device="cpu",
+                            noise=sync_noise)
+        check(on_card == on_cpu, f"phase 21 (d) {name}: {on_card} on the card, {on_cpu} "
+              "on the CPU")
+        sync_counts[name] = on_card
+    print(f"phase 21 (d): {card}: soft waterfall CR 4/{4 + cr} at {snr} dB, {frames} frames: "
+          f"(hard, soft) lost {w_card} on card and CPU, {paths['twin_waterfall']:.2f} s; sync "
+          f"sweep SF{sf} at {s_snr} dB, {trials} trials in chunks of {chunk}: (synced, "
+          f"hard, ml) {sync_counts['twin_sync_sweep']} ({paths['twin_sync_sweep']:.2f} s), "
+          f"--soft (synced, hard, soft) {sync_counts['twin_sync_sweep_soft']} "
+          f"({paths['twin_sync_sweep_soft']:.2f} s), each equal to the CPU's", flush=True)
+
+    twin = {k: (FUSED_BY_PATH[k], BF16_BY_PATH[k]) for k in paths}
+    check(not any(a or b for a, b in twin.values()),
+          f"phase 21: a kernel launched on a twin's path: {twin}")
+    print(f"phase 21: (fused_demod, bf16_decide) launches on each path: {twin}", flush=True)
 
 
 if __name__ == "__main__":

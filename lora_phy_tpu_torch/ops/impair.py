@@ -69,11 +69,22 @@ def apply_awgn(generator: torch.Generator, samples: torch.Tensor, snr_db) -> tor
     batch dims; the draws come from ``generator`` (on the samples'
     device)."""
     dev = samples.device
-    sigma = 10.0 ** (-torch.as_tensor(snr_db, dtype=torch.float32, device=dev) / 20.0)
     shape = samples.shape
     nr = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
     ni = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+    return add_awgn_draws(samples, nr, ni, snr_db)
+
+
+def add_awgn_draws(samples: torch.Tensor, nr, ni, snr_db) -> torch.Tensor:
+    """:func:`apply_awgn` on given draws: ``samples`` plus the unit normal
+    planes ``nr``, ``ni`` (the samples' shape; tensors or arrays) scaled
+    by ``sigma/sqrt(2)`` at ``snr_db``. Fed the JAX twin's two normal
+    draws it gives the JAX twin's noisy samples."""
+    dev = samples.device
+    sigma = 10.0 ** (-torch.as_tensor(snr_db, dtype=torch.float32, device=dev) / 20.0)
     scale = sigma[..., None] / math.sqrt(2.0)
+    nr = torch.as_tensor(nr, dtype=torch.float32, device=dev)
+    ni = torch.as_tensor(ni, dtype=torch.float32, device=dev)
     return samples + torch.complex(nr * scale, ni * scale)
 
 

@@ -155,15 +155,23 @@ def demodulate_stream_planar(xr, xi, params: LoraParams, mesh: Mesh,
 def demodulate_stream(samples, params: LoraParams, mesh: Mesh,
                       backend: str = "auto"):
     """Complex64 twin of :func:`demodulate_stream_planar` (``samples``
-    ``[channels, T]``): a wrapper over the planar body, as every complex
-    demodulator of the port. ``backend`` is checked as in
+    ``[channels, T]``, a tensor, an array or a
+    :class:`.mesh.ShardedTensor`): a wrapper over the planar body, as every
+    complex demodulator of the port. ``backend`` is checked as in
     :func:`..models.modem.demodulate` (every name runs the planar DFT)."""
     from ..models.modem import _check_backend
 
     _check_backend(backend)
-    if not isinstance(samples, torch.Tensor):
-        samples = torch.from_numpy(np.asarray(samples, np.complex64))
-    xr, xi = split_complex(samples)
+    if isinstance(samples, meshlib.ShardedTensor):
+        # each block splits into its planes where it lies
+        planes = [[split_complex(b) for b in row] for row in samples.blocks]
+        xr, xi = (meshlib.ShardedTensor(samples.sharding,
+                                        tuple(tuple(p[i] for p in row) for row in planes))
+                  for i in (0, 1))
+    else:
+        if not isinstance(samples, torch.Tensor):
+            samples = torch.from_numpy(np.asarray(samples, np.complex64))
+        xr, xi = split_complex(samples)
     return demodulate_stream_planar(xr, xi, params, mesh)
 
 

@@ -446,6 +446,29 @@ def test_apply_awgn_statistics():
     assert torch.equal(y, again)
 
 
+def test_add_awgn_draws_on_jax_draws():
+    """apply_awgn's noise from given unit normal planes: fed the two draws
+    JAX's apply_awgn splits from its key, the noisy samples are JAX's
+    (per-row SNR too); apply_awgn is the same function on its generator's
+    draws."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(4)
+    x = (rng.randn(2, 4096) + 1j * rng.randn(2, 4096)).astype(np.complex64)
+    snr = np.array([-6.0, 9.0], np.float32)
+    key = jax.random.PRNGKey(11)
+    kr, ki = jax.random.split(key)
+    nr = np.array(jax.random.normal(kr, x.shape, jnp.float32))
+    ni = np.array(jax.random.normal(ki, x.shape, jnp.float32))
+    want = np.asarray(jimpair.apply_awgn(key, x, snr))
+    got = timpair.add_awgn_draws(tt(x), nr, ni, tt(snr))
+    np.testing.assert_array_equal(nn(got), want)
+    gen = torch.Generator().manual_seed(3)
+    draws = (torch.randn(x.shape, generator=gen), torch.randn(x.shape, generator=gen))
+    y = timpair.apply_awgn(torch.Generator().manual_seed(3), tt(x), tt(snr))
+    assert torch.equal(y, timpair.add_awgn_draws(tt(x), *draws, tt(snr)))
+
+
 def test_rayleigh_taps_statistics():
     """Dense taps on the delays only, unit total power on average, each
     tap's mean power its profile share within 10 % over 4000 draws."""

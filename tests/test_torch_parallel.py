@@ -235,6 +235,23 @@ def test_time_sharded_stream_equals_single(jdevices, layout):
     _check_stream(layout, "complex", (2, 4))
 
 
+def test_complex_stream_takes_placed_input(jdevices):
+    """The complex entry point fed a placed stream (``mesh.device_put``
+    over ``stream_sharding``), as JAX's is fed ``jax.device_put`` output
+    (``__graft_entry__.dryrun_multichip``): each block splits into its
+    planes where it lies, and the result is JAX's."""
+    _, dech = _make_stream(2, payload_len=31)
+    m = tmesh(2, 4)
+    placed = tmeshlib.device_put(tt(dech), tmeshlib.stream_sharding(m))
+    syms, sync, cfo, to = tps.demodulate_stream(placed, tparams(P7), m)
+    ref = tps.demodulate_stream(tt(dech), tparams(P7), m)
+    for a, b in zip((syms, sync, cfo, to), ref):
+        assert torch.equal(a, b)
+    _, (jsyms, jsync, _, _) = _jax_stream((2, 4), "complex")
+    np.testing.assert_array_equal(nn(syms), jsyms)
+    np.testing.assert_array_equal(nn(sync), jsync)
+
+
 def test_time_sharded_with_timing_shift(jdevices):
     """test_parallel.py:73: a +3-sample shift makes every shard's window
     gather cross its right seam (the halo path)."""

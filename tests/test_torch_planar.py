@@ -138,6 +138,47 @@ def test_complex_api_vs_jax(sf, window):
     np.testing.assert_array_equal(nn(tmodem.decode(got.symbols)), payload)
 
 
+# JAX's estimates on a clean SF2-4 loopback: (time_offset, cfo in bins,
+# sync words of the three frames), ROADMAP Queue 3
+SMALL_SF_ESTIMATES = {2: (2.0, 0.3125, [34, 35, 33]),
+                      3: (4.0, 0.140625, [18, 17, 17]),
+                      4: (8.0, 0.06640625, [18, 18, 18])}
+
+
+@pytest.mark.parametrize("sf", sorted(SMALL_SF_ESTIMATES))
+def test_small_sf_estimator_reads_sync_as_offset_in_both_packages(sf):
+    """A mirrored reference behaviour: at SF2-4 (N < 32) the 2-symbol
+    estimator reads the wrapped sync word as a timing offset of N/2 (and a
+    fractional CFO), so a clean loopback's symbols come back wrong, in JAX
+    as in the port. 3 frames x 12 random symbols (numpy seed 50 + SF)
+    through modem.modulate / dechirp, then the default demodulate_planar
+    (estimator on): JAX's values asserted, the port's equal to them
+    (decisions bit-equal, cfo 1e-6, time_offset 2e-3)."""
+    p = LoraParams(sf=sf)
+    tp = tparams(p)
+    syms = np.random.RandomState(50 + sf).randint(0, p.n, (3, 12))
+    jdech = jmodem.dechirp(jmodem.modulate(syms.astype(np.uint16), p), p)
+    xr, xi = jplanar.split_complex(np.asarray(jdech))
+    ref = jplanar.demodulate_planar(xr, xi, p)
+    t_off, cfo, sync = SMALL_SF_ESTIMATES[sf]
+    np.testing.assert_array_equal(nn(ref.time_offset), [t_off] * 3)
+    assert t_off == p.n / 2
+    np.testing.assert_allclose(nn(ref.cfo), [cfo] * 3, rtol=0, atol=CFO_ATOL)
+    np.testing.assert_array_equal(nn(ref.sync_word), sync)
+    assert not np.array_equal(nn(ref.symbols), syms)
+    # the port on JAX's planes and on its own loopback
+    tdech = tmodem.dechirp(tmodem.modulate(tt(syms.astype(np.int32)), tp), tp)
+    np.testing.assert_allclose(nn(tdech), nn(jdech), rtol=0, atol=2 * DECHIRP_ATOL)
+    for got in (tplanar.demodulate_planar(tt(xr), tt(xi), tp),
+                tplanar.demodulate_planar(tdech.real.contiguous(),
+                                          tdech.imag.contiguous(), tp)):
+        np.testing.assert_array_equal(nn(got.symbols), nn(ref.symbols).astype(np.int32))
+        np.testing.assert_array_equal(nn(got.sync_word), nn(ref.sync_word))
+        np.testing.assert_allclose(nn(got.cfo), nn(ref.cfo), rtol=0, atol=CFO_ATOL)
+        np.testing.assert_allclose(nn(got.time_offset), nn(ref.time_offset),
+                                   rtol=0, atol=TO_ATOL)
+
+
 def test_known_offsets_and_assume_normalized_vs_jax():
     p = LoraParams(sf=7)
     tp = tparams(p)
