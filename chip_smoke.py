@@ -191,7 +191,11 @@ Imports no JAX. Phases, one line each (or a few):
    receiver's stage profile at bench shape (tools/torch_profile_block_rx.py:
    device ms, host ms and launches of each record_function range), the
    stages' device ms within 10 % of the call's busy time, the untraced
-   stage markers under 2 % of the call; (c) both kernels
+   stage markers under 2 % of the call; the bulk coded call (dechirp_planar
+   -> demodulate_planar(fused=True) -> decode_payload, 8 x 8192 frames at
+   a 0.3-bin CFO) untraced with its stage ranges and host-sync counters
+   against the same call with them patched to no-ops, in turns: at most
+   2 % slower, three host syncs a call; (c) both kernels
    alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
    SF7 main path's): fused_demod without and with the Hann window,
    bf16_decide with and without rotation, on tone rows whose CFO and
@@ -3181,6 +3185,85 @@ def phase20b_stage_profile(dev, card):
           f"untraced ({markers_ms / t:.5f} of the call)", flush=True)
     check(markers_ms <= 0.02 * t, f"phase 20 (b): the stage markers cost {markers_ms:.4f} ms, "
           f"over 2 % of the {t:.3f} ms call")
+    phase20b_bulk_markers(dev, card)
+
+
+# the modules whose stage ranges and host syncs the bulk call passes
+BULK_MARKED = (planar, modem, coded)
+
+
+@contextlib.contextmanager
+def markers_off():
+    """``stage_range`` and ``host_sync`` as no-ops (no range, no count) in
+    the modules of the bulk call, for the length of the block."""
+    null = contextlib.nullcontext()
+    saved = [(m, name, getattr(m, name)) for m in BULK_MARKED
+             for name in ("stage_range", "host_sync") if hasattr(m, name)]
+    try:
+        for m, name, _ in saved:
+            setattr(m, name, lambda *a: null)
+        yield
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
+
+
+def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
+    """What the stage ranges and host-sync counters cost the untraced bulk
+    coded call: host wall ms of ``calls`` back-to-back calls ending in a
+    synchronize, with the markers and with them patched to no-ops, in
+    turns (on, off, off, on); at most 2 % apart by the medians. Each call
+    passes three host syncs."""
+    from lora_phy_tpu_torch.utils import profiling
+
+    p = LoraParams(sf=7)
+    cfg = coded.CodedConfig(sf=7, cr=1, crc=True, whiten=True)
+    full = torch.from_numpy(np.random.RandomState(20).randint(
+        0, 256, (CHANNELS, FRAMES, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    xr, xi = planar.modulate_planar(coded.encode_payload(full, cfg), p)
+    ph = (2 * np.pi * 0.3 / p.n) * torch.arange(xr.shape[-1], device=dev, dtype=torch.float32)
+    c, s = torch.cos(ph), torch.sin(ph)
+    xr, xi = xr * c - xi * s, xr * s + xi * c
+    del ph, c, s
+
+    def call():
+        dr, di = planar.dechirp_planar(xr, xi, p)
+        res = planar.demodulate_planar(dr, di, p, fused=True)
+        return res, coded.decode_payload(res.symbols, PAYLOAD_LEN, cfg)
+
+    res, (payload, crc_ok, _) = call()
+    check(torch.equal(payload, full) and bool(crc_ok.all()),
+          "phase 20 (b) bulk: the payloads do not decode at a 0.3-bin CFO")
+    check(not bool((torch.round(res.time_offset) == 0).all()),
+          "phase 20 (b) bulk: every timing offset rounds to 0; the window gather is not driven")
+    del res, payload, crc_ok
+    before = profiling.HOST_SYNCS
+    call()
+    syncs = profiling.HOST_SYNCS - before
+
+    def wall_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    on, off = [], []
+    for _ in range(rounds // 2):
+        on.append(wall_ms())
+        with markers_off():
+            off += [wall_ms(), wall_ms()]
+        on.append(wall_ms())
+    t_on, t_off = statistics.median(on), statistics.median(off)
+    print(f"phase 20 (b): {card}: bulk coded call, {CHANNELS * FRAMES} frames: "
+          f"{t_on:.3f} ms with the stage ranges and host-sync counters, {t_off:.3f} ms with "
+          f"them patched to no-ops (medians of {len(on)} x {calls} calls in turns; "
+          f"{t_on / t_off - 1:+.4f}); {syncs} host syncs a call", flush=True)
+    check(syncs == 3, f"phase 20 (b) bulk: {syncs} host syncs a call, want 3")
+    check(t_on <= 1.02 * t_off, f"phase 20 (b) bulk: the markers cost {t_on - t_off:.3f} ms, "
+          f"over 2 % of the {t_off:.3f} ms call")
+    torch.cuda.empty_cache()
 
 
 def fused_bound(n_rows, n, window=False):

@@ -23,6 +23,7 @@ import torch
 
 from .. import device_of
 from ..ops import coding
+from ..utils.profiling import stage_range
 
 @dataclasses.dataclass(frozen=True)
 class CodedConfig:
@@ -138,19 +139,21 @@ def decode_payload(symbols: torch.Tensor, nbytes: int, cfg: CodedConfig):
 
     ``crc_ok`` is all-True when CRC is disabled; ``fec_errors`` counts
     codewords with detected parity errors (corrected where the code can).
+    Runs in the range ``coded.decode`` while a profiler runs; no host sync.
     """
-    symbols = symbols.to(torch.int32) & 0xFFFF
-    if cfg.ldro:
-        symbols = _ldro_demap(symbols, cfg.sf)
-    words = coding.binary_to_gray(symbols)
-    codewords = coding.diagonal_deinterleave(words, cfg.ppm, cfg.rdd)
-    nibbles, err = _fec_decode(codewords, cfg.cr)
-    total = nbytes + (2 if cfg.crc else 0)
-    framed = coding.nibbles_to_bytes(nibbles[..., : total * 2])
-    if cfg.whiten:
-        framed = coding.whiten_sx1272_lfsr(framed, 0, 4)
-    payload = framed[..., :nbytes]
-    return payload, _check_crc(framed, payload, cfg), torch.sum(err, dim=-1)
+    with stage_range("coded.decode"):
+        symbols = symbols.to(torch.int32) & 0xFFFF
+        if cfg.ldro:
+            symbols = _ldro_demap(symbols, cfg.sf)
+        words = coding.binary_to_gray(symbols)
+        codewords = coding.diagonal_deinterleave(words, cfg.ppm, cfg.rdd)
+        nibbles, err = _fec_decode(codewords, cfg.cr)
+        total = nbytes + (2 if cfg.crc else 0)
+        framed = coding.nibbles_to_bytes(nibbles[..., : total * 2])
+        if cfg.whiten:
+            framed = coding.whiten_sx1272_lfsr(framed, 0, 4)
+        payload = framed[..., :nbytes]
+        return payload, _check_crc(framed, payload, cfg), torch.sum(err, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch
 
 from .. import LoraParams, Window, device_of, device_table
 from ..ops import coding
+from ..utils.profiling import host_sync, stage_range
 
 _TWO_PI = 2.0 * math.pi
 _TWO_PI_F32 = float(np.float32(_TWO_PI))
@@ -55,10 +56,12 @@ def encode(payload, device=None) -> torch.Tensor:
 
 def decode(symbols: torch.Tensor) -> torch.Tensor:
     """Symbol pairs -> bytes via Hamming(8,4) correction
-    (reference: src/phy/LoRaDecoder.cpp:6-19). [..., 2B] -> [..., B] uint8."""
-    n = symbols.shape[-1] - (symbols.shape[-1] % 2)
-    nibbles, _, _ = coding.hamming84_decode(symbols[..., :n])
-    return coding.nibbles_to_bytes(nibbles & 0x0F)
+    (reference: src/phy/LoRaDecoder.cpp:6-19). [..., 2B] -> [..., B] uint8.
+    Runs in the range ``modem.decode`` while a profiler runs."""
+    with stage_range("modem.decode"):
+        n = symbols.shape[-1] - (symbols.shape[-1] % 2)
+        nibbles, _, _ = coding.hamming84_decode(symbols[..., :n])
+        return coding.nibbles_to_bytes(nibbles & 0x0F)
 
 
 def decode_with_crc(symbols: torch.Tensor) -> DecodeResult:
@@ -339,9 +342,11 @@ def _shifted_symbol_gather(x: torch.Tensor, total_symbols: int, n: int,
     on one boolean read from the device: when every frame's offset is zero
     (the steady state, and the bench batch) the padded copy and the gather
     of :func:`_shifted_rows` are never made, which a guarded select would
-    pay for in full on every call. The cost is one device-to-host read
-    per call. Semantics are identical: at ``t_off == 0`` the guard selects
-    the unshifted window for every symbol."""
+    pay for in full on every call. The cost is one host sync per call
+    (:func:`..utils.profiling.host_sync`): on a CUDA device the read waits
+    for every op queued before it, whether or not an offset is zero.
+    Semantics are identical: at ``t_off == 0`` the guard selects the
+    unshifted window for every symbol."""
     step = n * osr
     sample_count = total_symbols * step
     x = x[..., :sample_count]
@@ -349,7 +354,10 @@ def _shifted_symbol_gather(x: torch.Tensor, total_symbols: int, n: int,
     def symview(a):
         return a.reshape(*a.shape[:-1], total_symbols, n, osr)[..., dec_phase]
 
-    if bool((t_off == 0).all()):
+    aligned = (t_off == 0).all()
+    with host_sync():
+        aligned = bool(aligned)
+    if aligned:
         return symview(x)
     shifted = _shifted_rows(x, t_off, step)
     base = torch.arange(total_symbols, dtype=torch.int32, device=x.device) * step

@@ -339,7 +339,10 @@ def _receive_block_circular(xr, xi, params: LoraParams,
     aligned spectrum rotated by exactly ``q`` bins. So no sample moves:
     decisions read ``(raw + q_section - cfo_bins) mod n``, and only the
     fractional CFO is derotated, at the true sample index ``(j - q) mod
-    n`` (docs/SEMANTICS.md "circular extraction"). Makes no host read.
+    n`` (docs/SEMANTICS.md "circular extraction"). One host sync on a
+    CUDA device, in the ``estimator`` stage: :func:`..ops.planar.detect_planar`
+    copies ``N`` to the device from pageable host memory, which waits for
+    the queue to drain (:func:`..utils.profiling.host_sync`).
 
     While a profiler runs, each stage runs in a ``record_function`` range
     (:func:`stage_range`; nothing otherwise) named after the stages of
@@ -556,10 +559,12 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
     phase delta assumed by the fine-CFO estimator (default: this
     framework's modulator's; ``0.0`` for gr-lora_sdr transmitters).
 
-    Host reads: none on the circular path. On the barrel path at
-    ``pre_acc=1`` the only one is
-    :func:`..ops.planar.demodulate_spectrum_planar`'s ``t_off == 0``
-    branch (one boolean); ``pre_acc`` > 1 makes none.
+    Host syncs on a CUDA device (:func:`..utils.profiling.host_sync`):
+    one on the circular path, :func:`..ops.planar.detect_planar`'s copy of
+    ``N`` in the preamble estimate. On the barrel path, that copy in each
+    :func:`..ops.planar.detect_planar` call and, at ``pre_acc=1``, the
+    ``t_off == 0`` read of each plane in
+    :func:`..ops.planar.demodulate_spectrum_planar`.
 
     ``with_spectra=True`` also returns the payload spectra ``[..., K,
     n_payload, n]`` in true bin order: |DFT|², or the combining scores

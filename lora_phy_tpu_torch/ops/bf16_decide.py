@@ -30,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import launch_range
 from . import planar
 
 # Launches of the CUDA kernel in this process: one per call of
@@ -257,7 +258,7 @@ def bf16_decide_rows(yr: torch.Tensor, yi: torch.Tensor, n: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(yr.device):
+    with torch.cuda.device(yr.device), launch_range("bf16_decide.launch"):
         stream = torch.cuda.current_stream(yr.device).cuda_stream
         rc = lib.lora_bf16_decide(
             ptr(yr), ptr(yi), ptr(cr), ptr(si), ctypes.c_longlong(rows),

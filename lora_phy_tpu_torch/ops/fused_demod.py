@@ -29,6 +29,7 @@ import torch
 
 from .. import LoraParams, device_table
 from ..models.modem import _window_table
+from ..utils.profiling import launch_range
 
 # Launches of the CUDA kernel in this process: one per call of
 # fused_detect_rows on CUDA tensors, so a run can show that its main
@@ -147,7 +148,7 @@ def fused_detect_rows(xr: torch.Tensor, xi: torch.Tensor, start: torch.Tensor,
     twiddle = device_table(_twiddles, n, device=xr.device)
     window = device_table(_window_table, params, device=xr.device)
     out = torch.empty(xr.shape[0], dtype=torch.int32, device=xr.device)
-    with torch.cuda.device(xr.device):
+    with torch.cuda.device(xr.device), launch_range("fused_demod.launch"):
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.lora_fused_demod(
             xr.data_ptr(), xi.data_ptr(), start.data_ptr(), rate_rows.data_ptr(),

@@ -35,6 +35,7 @@ from ..models.modem import (_derotation_vector, _osr_phase_view,
                             _pick_osr_phase, _round_half_away,
                             _shifted_symbol_gather, _sync_from_symbols,
                             _tie_power_db, _window_tensor, _wrap_pi)
+from ..utils.profiling import host_sync, stage_range
 from .fft import _dft_mats
 
 _TWO_PI = 2.0 * math.pi
@@ -243,14 +244,18 @@ def _argmax_natural(flat: torch.Tensor, n1: int, n2: int):
 def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
                   mxu_dtype=None) -> PlanarDetection:
     """Planar twin of ops.detect.detect (same argmax/tie-break/fIndex
-    semantics, LoRaDetector.hpp:39-74)."""
+    semantics, LoRaDetector.hpp:39-74).
+
+    One host sync a call on a CUDA device: ``N`` is copied to the device
+    from pageable host memory, which waits for the queue to drain."""
     sr, si = dft_planar(xr, xi, n, mxu_dtype)
     mag2 = sr * sr + si * si
     index = torch.argmax(mag2, dim=-1)
     max_value = mag2.amax(dim=-1)
     fundamental = torch.sqrt(max_value)
-    scale_db = 20.0 * torch.log10(torch.tensor(n, dtype=torch.float32,
-                                               device=xr.device))
+    with host_sync():
+        n_dev = torch.tensor(n, dtype=torch.float32, device=xr.device)
+    scale_db = 20.0 * torch.log10(n_dev)
     power = 20.0 * torch.log10(fundamental) - scale_db
     total = mag2.sum(dim=-1)
     noise = torch.sqrt(torch.clamp(total - max_value, min=0.0))
@@ -477,7 +482,18 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     to bf16 (f32 sums); the derotation and the decision go through
     :mod:`.bf16_decide` (on a CUDA tensor one kernel, which never writes
     the derotated planes out). The front (scan, estimate, windows) stays
-    float32, so ``cfo`` and ``time_offset`` are float32's."""
+    float32, so ``cfo`` and ``time_offset`` are float32's.
+
+    While a profiler runs, the stages are ``record_function`` ranges that
+    do not nest: the front's ``planar.scale``, ``planar.estimate`` and
+    ``planar.windows`` (:func:`_demod_stage_planar`), then
+    ``planar.decide`` around the per-symbol stage (the kernel, the bf16
+    kernel or torch ops; the sync word is outside it). On a CUDA device
+    the call makes three host syncs
+    (:func:`..utils.profiling.host_sync`): one in the estimate
+    (:func:`detect_planar`), one in each plane's window gather
+    (:func:`..models.modem._shifted_symbol_gather`); ``known_offsets``
+    leaves out the first."""
     mxu_dtype = _mxu_dtype(precision)
     if fused and mxu_dtype is not None:
         raise ValueError("the fused kernel runs f32 only; "
@@ -486,25 +502,26 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
         xr, xi, params, assume_normalized, known_offsets
     )
 
-    if fused:
-        # the kernel multiplies by ``scale`` at load: the same floats as
-        # the JAX path's ``yr * scale``, without materialising it
-        from .fused_demod import fused_demod
-        syms = fused_demod(yr, yi, rate, t_off, params, scale)
-    elif mxu_dtype is not None:
-        from .bf16_decide import bf16_decide_rows
+    with stage_range("planar.decide"):
+        if fused:
+            # the kernel multiplies by ``scale`` at load: the same floats as
+            # the JAX path's ``yr * scale``, without materialising it
+            from .fused_demod import fused_demod
+            syms = fused_demod(yr, yi, rate, t_off, params, scale)
+        elif mxu_dtype is not None:
+            from .bf16_decide import bf16_decide_rows
 
-        n = params.n
-        cr, si = _rotation_planes(rate, scale, params)
-        rows = yr.shape[:-1]
-        syms = bf16_decide_rows(yr.reshape(-1, n).contiguous(),
-                                yi.reshape(-1, n).contiguous(), n,
-                                cr.reshape(-1, n).contiguous(),
-                                si.reshape(-1, n).contiguous(),
-                                rows_per_rot=rows[-1]).reshape(rows)
-    else:
-        fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
-        syms = argmax_bins_planar(fr, fi, params.n)
+            n = params.n
+            cr, si = _rotation_planes(rate, scale, params)
+            rows = yr.shape[:-1]
+            syms = bf16_decide_rows(yr.reshape(-1, n).contiguous(),
+                                    yi.reshape(-1, n).contiguous(), n,
+                                    cr.reshape(-1, n).contiguous(),
+                                    si.reshape(-1, n).contiguous(),
+                                    rows_per_rot=rows[-1]).reshape(rows)
+        else:
+            fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
+            syms = argmax_bins_planar(fr, fi, params.n)
 
     sync = _sync_from_symbols(syms[..., 0], syms[..., 1], params.sf)
     return PlanarDemodResult(syms[..., 2:], sync, cfo, time_offset)
@@ -530,9 +547,11 @@ def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
 
     ``dec_phase`` picks the decimation phase of the symbol windows: pass
     ``osr-1`` when receiving the reference's default TX fold with an
-    injected time offset of 0 (see modem._shifted_symbol_gather). The
-    only host read is :func:`_shifted_symbol_gather`'s ``t_off == 0``
-    branch. ``precision='bf16'`` rounds the DFT operands to bf16 (torch
+    injected time offset of 0 (see modem._shifted_symbol_gather). On a
+    CUDA device the host syncs are :func:`demodulate_planar`'s three:
+    :func:`detect_planar`'s copy of ``N`` in the estimate (none with
+    ``known_offsets``) and the ``t_off == 0`` read of each plane's window
+    gather. ``precision='bf16'`` rounds the DFT operands to bf16 (torch
     ops on every device: the spectra are floats, not decisions)."""
     mxu_dtype = _mxu_dtype(precision)
     yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
@@ -558,7 +577,9 @@ def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     estimate (or injection), shifted symbol windows.
 
     Returns ``(yr, yi, rate, t_off, scale, cfo, time_offset)`` with
-    ``yr/yi`` the [..., S, N] pre-rotation symbol windows."""
+    ``yr/yi`` the [..., S, N] pre-rotation symbol windows. Its stages run
+    in the ranges ``planar.scale``, ``planar.estimate`` and
+    ``planar.windows`` (:func:`..utils.profiling.stage_range`)."""
     n, osr, step = params.n, params.osr, params.step
     total_symbols = xr.shape[-1] // step
     if total_symbols < 2:
@@ -570,32 +591,34 @@ def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     # folded into the derotation factors downstream (the argmax is
     # scale-invariant), so only the max scan touches the full input.
     if not assume_normalized:
-        max_amp = torch.maximum(_max_abs(xr), _max_abs(xi))
-        scale = torch.where(max_amp > 1.0, 1.0 / max_amp,
-                            torch.ones_like(max_amp))
+        with stage_range("planar.scale"):
+            max_amp = torch.maximum(_max_abs(xr), _max_abs(xi))
+            scale = torch.where(max_amp > 1.0, 1.0 / max_amp,
+                                torch.ones_like(max_amp))
     else:
         scale = None
 
-    window = _window_tensor(params, xr.device)
-    if known_offsets is None:
-        er = xr[..., : 2 * step]
-        ei = xi[..., : 2 * step]
-        if scale is not None:
-            er = er * scale[..., None]
-            ei = ei * scale[..., None]
-        cfo, time_offset = _estimate_planar(er, ei, n, osr, window)
-    else:
-        batch = xr.shape[:-1]
-        cfo = torch.broadcast_to(torch.as_tensor(
-            known_offsets[0], dtype=torch.float32, device=xr.device), batch)
-        time_offset = torch.broadcast_to(torch.as_tensor(
-            known_offsets[1], dtype=torch.float32, device=xr.device), batch)
+    with stage_range("planar.estimate"):
+        window = _window_tensor(params, xr.device)
+        if known_offsets is None:
+            er = xr[..., : 2 * step]
+            ei = xi[..., : 2 * step]
+            if scale is not None:
+                er = er * scale[..., None]
+                ei = ei * scale[..., None]
+            cfo, time_offset = _estimate_planar(er, ei, n, osr, window)
+        else:
+            batch = xr.shape[:-1]
+            cfo = torch.broadcast_to(torch.as_tensor(
+                known_offsets[0], dtype=torch.float32, device=xr.device), batch)
+            time_offset = torch.broadcast_to(torch.as_tensor(
+                known_offsets[1], dtype=torch.float32, device=xr.device), batch)
+        rate = -_TWO_PI_F32 * cfo / float(n)
 
-    t_off = _round_half_away(time_offset).to(torch.int32)
-    rate = -_TWO_PI_F32 * cfo / float(n)
-
-    yr = _shifted_symbol_gather(xr, total_symbols, n, osr, t_off, dec_phase)
-    yi = _shifted_symbol_gather(xi, total_symbols, n, osr, t_off, dec_phase)
+    with stage_range("planar.windows"):
+        t_off = _round_half_away(time_offset).to(torch.int32)
+        yr = _shifted_symbol_gather(xr, total_symbols, n, osr, t_off, dec_phase)
+        yi = _shifted_symbol_gather(xi, total_symbols, n, osr, t_off, dec_phase)
     return yr, yi, rate, t_off, scale, cfo, time_offset
 
 
@@ -698,16 +721,18 @@ def modulate_planar(symbols: torch.Tensor, params: LoraParams,
 
 def dechirp_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams):
     """Planar external dechirp — multiply every symbol period by the base
-    downchirp (the working-path contract, tests/e2e_chain_test.cpp:80-93)."""
+    downchirp (the working-path contract, tests/e2e_chain_test.cpp:80-93).
+    Runs in the range ``planar.dechirp`` while a profiler runs."""
     from .chirp import base_downchirp_planar
 
-    dr, di = device_table(base_downchirp_planar, params.sf, params.scale,
-                          params.osr, device=xr.device)
-    step = params.step
-    nsym = xr.shape[-1] // step
-    lead = xr.shape[:-1]
-    ar = xr[..., : nsym * step].reshape(*lead, nsym, step)
-    ai = xi[..., : nsym * step].reshape(*lead, nsym, step)
-    yr = ar * dr - ai * di
-    yi = ar * di + ai * dr
-    return (yr.reshape(*lead, nsym * step), yi.reshape(*lead, nsym * step))
+    with stage_range("planar.dechirp"):
+        dr, di = device_table(base_downchirp_planar, params.sf, params.scale,
+                              params.osr, device=xr.device)
+        step = params.step
+        nsym = xr.shape[-1] // step
+        lead = xr.shape[:-1]
+        ar = xr[..., : nsym * step].reshape(*lead, nsym, step)
+        ai = xi[..., : nsym * step].reshape(*lead, nsym, step)
+        yr = ar * dr - ai * di
+        yi = ar * di + ai * dr
+        return (yr.reshape(*lead, nsym * step), yi.reshape(*lead, nsym * step))

@@ -6,6 +6,12 @@ loop (reference: tests/performance_test.cpp:103-133). Here:
 
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace JSON (``trace.json``) into a log directory;
+* :func:`stage_range` — a stage's ``record_function`` range while a
+  profiler runs, nothing otherwise; :func:`host_sync` — the same around
+  each point where a hot path makes the host wait for the device, counted
+  in :data:`HOST_SYNCS`; :func:`launch_range` — an operator-level range
+  around a hand kernel's ``ctypes`` launch, so that the profiler links
+  the kernel to the stage that launched it;
 * :func:`demod_roofline` — analytic FLOP/byte accounting for the
   dechirp-detection pipeline, reporting the compute- and bandwidth-bound
   time floors and the attained fraction for a measured runtime, against
@@ -41,6 +47,10 @@ H100_F32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12
 H100_HBM_BPS = 3.35e12
 
+# host syncs passed (:func:`host_sync`), on every device: on a CUDA device
+# each is a point where the host waits for the queue to drain
+HOST_SYNCS = 0
+
 
 @contextlib.contextmanager
 def trace(log_dir: str | os.PathLike | None = None):
@@ -68,6 +78,28 @@ def stage_range(name: str):
     if torch._C._autograd._profiler_enabled():
         return record_function(name)
     return contextlib.nullcontext()
+
+
+def launch_range(name: str):
+    """While a profiler runs, an operator-level range named ``name``
+    around a launch made outside PyTorch's operators (a hand kernel called
+    through ``ctypes``), else a no-op. The profiler links a device event
+    to the innermost operator open at its launch, never to a
+    ``record_function`` range (a user annotation): without this range a
+    hand kernel is linked to nothing, and no stage range holds it."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return contextlib.nullcontext()
+
+
+def host_sync():
+    """Mark the one expression of a hot path that makes the host wait for
+    the device (a device-to-host read, a pageable host-to-device copy):
+    adds 1 to :data:`HOST_SYNCS` and returns ``stage_range("host_sync")``,
+    so that while a profiler runs the range's host time is the wait."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return stage_range("host_sync")
 
 
 @dataclasses.dataclass
