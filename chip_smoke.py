@@ -195,14 +195,18 @@ Imports no JAX. Phases, one line each (or a few):
    -> demodulate_planar(fused=True) -> decode_payload, 8 x 8192 frames at
    a 0.3-bin CFO) untraced with its stage ranges and host-sync counters
    against the same call with them patched to no-ops, in turns: at most
-   2 % slower, three host syncs a call; (c) both kernels
+   2 % slower, three host syncs a call, one dechirp launch a call; (c) both kernels
    alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
    SF7 main path's): fused_demod without and with the Hann window,
    bf16_decide with and without rotation, on tone rows whose CFO and
    amplitude the call takes out: bins equal to the plain version's outside
    near-ties and at the tones' bins; time, bound and share, the plain
    version's time and the library yardstick's (cuFFT's DFT alone, cuBLAS's
-   bf16 GEMM alone);
+   bf16 GEMM alone); (d) the dechirp kernel (csrc/dechirp.cu) at the bulk
+   cell's shape, 8 x 8192 x 6,656 samples: its planes bit-equal to its
+   eager twin's, both times, its bytes bound and share, the memory a call
+   takes beyond its inputs; then on an offset view (its scalar path),
+   bit-equal too;
 21. the repo-level twins of the files that drive the JAX package: (a)
    torch_graft_entry.entry's forward on the card, its decisions equal to
    the same forward on the CPU, the payloads back, sync 0x12, its CUDA-event
@@ -223,7 +227,7 @@ Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
 SIC loop and the blind receiver's six SFs (phases 12-13), the flowgraph and
 phase 18's sweep. Phases 14-18 write their files to a temporary directory. Then a JSON
-line of the two kernels (with the launches counted on each path) and, last,
+line of the three kernels (with the launches counted on each path) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
@@ -245,7 +249,9 @@ import torch
 from lora_phy_tpu_torch import Bandwidth, LoraParams, Window, _build, device_table
 from lora_phy_tpu_torch.models import coded, modem, sic, soft, stream, sync
 from lora_phy_tpu_torch.ops import channelizer, impair, planar
+from lora_phy_tpu_torch.ops.chirp import base_downchirp_planar
 from lora_phy_tpu_torch.ops import bf16_decide as bf16
+from lora_phy_tpu_torch.ops import dechirp as dechirp_k
 from lora_phy_tpu_torch.ops import fused_demod as fused
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # HBM bandwidth; one definition, in the port's profiling module
@@ -326,23 +332,25 @@ BF16_SF5_FRAMES = 32768
 BF16_SF4_FRAMES, BF16_SF6_FRAMES = 65536, 19648
 
 
-# the bf16 decision kernel's (and fused_demod's) launches on each path,
-# read by read_launches
-BF16_BY_PATH, FUSED_BY_PATH = {}, {}
+# the bf16 decision kernel's, fused_demod's and the dechirp kernel's
+# launches on each path, read by read_launches
+BF16_BY_PATH, FUSED_BY_PATH, DECHIRP_BY_PATH = {}, {}, {}
 
 
 def reset_launches():
-    """Set both kernels' launch counters to 0 just before a path."""
+    """Set the kernels' launch counters to 0 just before a path."""
     fused.LAUNCHES = 0
     bf16.LAUNCHES = 0
+    dechirp_k.LAUNCHES = 0
 
 
 def read_launches(path):
-    """Read both counters just after ``path``: each kernel's launches are
-    added to its BF16_BY_PATH / FUSED_BY_PATH entry; fused_demod's are
-    returned."""
+    """Read the counters just after ``path``: each kernel's launches are
+    added to its BF16_BY_PATH / FUSED_BY_PATH / DECHIRP_BY_PATH entry;
+    fused_demod's are returned."""
     BF16_BY_PATH[path] = BF16_BY_PATH.get(path, 0) + bf16.LAUNCHES
     FUSED_BY_PATH[path] = FUSED_BY_PATH.get(path, 0) + fused.LAUNCHES
+    DECHIRP_BY_PATH[path] = DECHIRP_BY_PATH.get(path, 0) + dechirp_k.LAUNCHES
     return fused.LAUNCHES
 
 
@@ -579,6 +587,8 @@ def main():
     torch.cuda.empty_cache()
     phase20b_stage_profile(dev, card)
     torch.cuda.empty_cache()
+    record20 = phase20d_dechirp(dev, card)
+    torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -595,7 +605,8 @@ def main():
                                   **small_sf, **other}
     record["launches"] += coded_launches
     record19["launches_by_path"] = dict(BF16_BY_PATH)
-    print(json.dumps({"kernels": [record, record19]}), flush=True)
+    record20["launches_by_path"] = dict(DECHIRP_BY_PATH)
+    print(json.dumps({"kernels": [record, record19, record20]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
@@ -3231,7 +3242,12 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
         res = planar.demodulate_planar(dr, di, p, fused=True)
         return res, coded.decode_payload(res.symbols, PAYLOAD_LEN, cfg)
 
+    reset_launches()
     res, (payload, crc_ok, _) = call()
+    torch.cuda.synchronize()
+    read_launches("bulk")
+    check(DECHIRP_BY_PATH["bulk"] == 1,
+          f"phase 20 (b) bulk: {DECHIRP_BY_PATH['bulk']} dechirp launches in one call, want 1")
     check(torch.equal(payload, full) and bool(crc_ok.all()),
           "phase 20 (b) bulk: the payloads do not decode at a 0.3-bin CFO")
     check(not bool((torch.round(res.time_offset) == 0).all()),
@@ -3260,10 +3276,75 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
           f"{t_on:.3f} ms with the stage ranges and host-sync counters, {t_off:.3f} ms with "
           f"them patched to no-ops (medians of {len(on)} x {calls} calls in turns; "
           f"{t_on / t_off - 1:+.4f}); {syncs} host syncs a call", flush=True)
+    print(f"phase 20 (b): bulk call's kernel launches: dechirp {DECHIRP_BY_PATH['bulk']}, "
+          f"fused_demod {FUSED_BY_PATH['bulk']}, bf16_decide {BF16_BY_PATH['bulk']}", flush=True)
     check(syncs == 3, f"phase 20 (b) bulk: {syncs} host syncs a call, want 3")
     check(t_on <= 1.02 * t_off, f"phase 20 (b) bulk: the markers cost {t_on - t_off:.3f} ms, "
           f"over 2 % of the {t_off:.3f} ms call")
     torch.cuda.empty_cache()
+
+
+# the bulk cell's planes (phybench bulk-b65536): 8 x 8192 frames of 52
+# SF7 symbol periods, 6,656 samples
+DECHIRP_SHAPE = (CHANNELS, FRAMES, 52 * 128)
+
+
+def phase20d_dechirp(dev, card):
+    """The dechirp kernel at the bulk cell's shape against its eager twin
+    (``dechirp_reference``, six passes): bit-equal planes, both times, the
+    bytes bound (both planes read and written once) and the share; then on
+    a view whose base is off a 16-byte boundary (the scalar path), bit-equal
+    too. Returns the kernel's record for the JSON line."""
+    p = LoraParams(sf=7)
+    gen = torch.Generator(device=dev).manual_seed(2021)
+    xr = torch.randn(DECHIRP_SHAPE, generator=gen, device=dev)
+    xi = torch.randn(DECHIRP_SHAPE, generator=gen, device=dev)
+    dr, di = device_table(base_downchirp_planar, p.sf, p.scale, p.osr, device=dev)
+    reset_launches()
+    yr, yi = planar.dechirp_planar(xr, xi, p)
+    torch.cuda.synchronize()
+    check(dechirp_k.LAUNCHES == 1, f"phase 20 (d): {dechirp_k.LAUNCHES} launches in one call")
+    wr, wi = dechirp_k.dechirp_reference(xr, xi, dr, di)
+    check(torch.equal(yr, wr) and torch.equal(yi, wi),
+          "phase 20 (d): the kernel's planes differ from the twin's")
+    del yr, yi, wr, wi
+    t_kernel = cuda_ms(lambda: planar.dechirp_planar(xr, xi, p), iters=10, calls=5)
+    t_twin = cuda_ms(lambda: dechirp_k.dechirp_reference(xr, xi, dr, di), iters=5, calls=3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    planar.dechirp_planar(xr, xi, p)
+    peak_kernel = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    dechirp_k.dechirp_reference(xr, xi, dr, di)
+    peak_twin = torch.cuda.max_memory_allocated(dev) - base
+    samples = xr.numel()
+    nbytes = 16 * samples
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"phase 20 (d): {card}: dechirp_planar on {DECHIRP_SHAPE} ({samples / 1e6:.1f} M "
+          f"samples a plane): CUDA kernel {t_kernel:.3f} ms ({nbytes / t_kernel / 1e9:.3f} "
+          f"TB/s), eager twin {t_twin:.3f} ms; planes bit-equal; bound {bound_ms:.3f} ms by "
+          f"bytes ({nbytes:.4g} B), {bound_ms / t_kernel:.3f} of it; memory a call beyond the "
+          f"inputs {peak_kernel / 1e9:.3f} GB (twin {peak_twin / 1e9:.3f} GB)", flush=True)
+    # an offset view: base 4 bytes past a 16-byte boundary, rows of 6,657
+    wide = torch.zeros(2, CHANNELS, 64, DECHIRP_SHAPE[-1] + 1, device=dev)
+    wide[0, ..., 1:], wide[1, ..., 1:] = xr[:, :64], xi[:, :64]
+    vr, vi = wide[0, ..., 1:], wide[1, ..., 1:]
+    check(vr.data_ptr() % 16 != 0, "phase 20 (d): the offset view is aligned")
+    reset_launches()
+    yr, yi = planar.dechirp_planar(vr, vi, p)
+    wr, wi = dechirp_k.dechirp_reference(vr, vi, dr, di)
+    check(dechirp_k.LAUNCHES == 1 and torch.equal(yr, wr) and torch.equal(yi, wi),
+          "phase 20 (d): the scalar path's planes differ from the twin's")
+    t_view = cuda_ms(lambda: planar.dechirp_planar(vr, vi, p), iters=5)
+    t_view_twin = cuda_ms(lambda: dechirp_k.dechirp_reference(vr, vi, dr, di), iters=5)
+    print(f"phase 20 (d): {card}: the scalar path on an offset view of {tuple(vr.shape)}: "
+          f"bit-equal, {t_view:.3f} ms (eager twin {t_view_twin:.3f} ms)", flush=True)
+    del xr, xi, wide, vr, vi, yr, yi, wr, wi
+    return {"name": "dechirp", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/dechirp.cu",
+            "replaces": None, "launches": 1, "max_abs_err": 0,
+            "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": "bytes",
+            # the eager twin is the only PyTorch yardstick; no library call
+            "library_ms": None}
 
 
 def fused_bound(n_rows, n, window=False):

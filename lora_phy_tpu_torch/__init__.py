@@ -4,7 +4,8 @@ A port of :mod:`lora_phy_tpu` (the JAX reference, which stays beside it)
 to PyTorch, with the one Pallas kernel of the JAX package rewritten by
 hand in CUDA C++ for Hopper (``csrc/fused_demod.cu``) and the opt-in
 ``precision="bf16"`` decisions on the bf16 tensor cores in a second
-hand-written kernel (``csrc/bf16_decide.cu``). Every function mirrors its
+hand-written kernel (``csrc/bf16_decide.cu``); ``dechirp_planar`` runs as
+one pass of a third (``csrc/dechirp.cu``) on the card. Every function mirrors its
 JAX twin file for file:
 
   ops/coding.py       the coding primitives: Hamming 8/4 and 7/4, parity
