@@ -143,20 +143,21 @@ def dft_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, mxu_dtype=None):
         xr, xi = xr.reshape(-1, n), xi.reshape(-1, n)
         return ((_mm(xr, wr, mxu_dtype) - _mm(xi, wi, mxu_dtype)).reshape(shape),
                 (_mm(xr, wi, mxu_dtype) + _mm(xi, wr, mxu_dtype)).reshape(shape))
-    w1r, w1i, w2r, w2i, twr, twi = device_table(_fourstep_planar_mats, n,
-                                                device=xr.device)
-    n1, n2 = _dft_mats(n)[3:]
-    lead = xr.shape[:-1]
-    xr_m = xr.reshape(*lead, n2, n1)                    # [.., i2, i1]
-    xi_m = xi.reshape(*lead, n2, n1)
-    ar = _mm(w2r, xr_m, mxu_dtype) - _mm(w2i, xi_m, mxu_dtype)  # inner DFT: [.., k2, i1]
-    ai = _mm(w2r, xi_m, mxu_dtype) + _mm(w2i, xr_m, mxu_dtype)
-    br = ar * twr - ai * twi                            # twiddle
-    bi = ar * twi + ai * twr
-    cr = _mm(br, w1r.T, mxu_dtype) - _mm(bi, w1i.T, mxu_dtype)  # outer DFT: [.., k2, k1]
-    ci = _mm(br, w1i.T, mxu_dtype) + _mm(bi, w1r.T, mxu_dtype)
-    return (cr.swapaxes(-1, -2).reshape(*lead, n),
-            ci.swapaxes(-1, -2).reshape(*lead, n))
+    with stage_range("planar.fourstep"):
+        w1r, w1i, w2r, w2i, twr, twi = device_table(_fourstep_planar_mats, n,
+                                                    device=xr.device)
+        n1, n2 = _dft_mats(n)[3:]
+        lead = xr.shape[:-1]
+        xr_m = xr.reshape(*lead, n2, n1)                    # [.., i2, i1]
+        xi_m = xi.reshape(*lead, n2, n1)
+        ar = _mm(w2r, xr_m, mxu_dtype) - _mm(w2i, xi_m, mxu_dtype)  # inner DFT: [.., k2, i1]
+        ai = _mm(w2r, xi_m, mxu_dtype) + _mm(w2i, xr_m, mxu_dtype)
+        br = ar * twr - ai * twi                            # twiddle
+        bi = ar * twi + ai * twr
+        cr = _mm(br, w1r.T, mxu_dtype) - _mm(bi, w1i.T, mxu_dtype)  # outer DFT: [.., k2, k1]
+        ci = _mm(br, w1i.T, mxu_dtype) + _mm(bi, w1r.T, mxu_dtype)
+        return (cr.swapaxes(-1, -2).reshape(*lead, n),
+                ci.swapaxes(-1, -2).reshape(*lead, n))
 
 
 def _dft_mag2_scrambled(xr: torch.Tensor, xi: torch.Tensor, n: int,
@@ -186,9 +187,10 @@ def dft_mag2_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
         m = device_table(_combined_dft_mat, n, device=xr.device)
         y = _mm(torch.cat([xr, xi], dim=-1), m, mxu_dtype)
         return y[..., :n] * y[..., :n] + y[..., n:] * y[..., n:]
-    m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
-    lead = m.shape[:-2]
-    return m.swapaxes(-1, -2).reshape(*lead, n)
+    with stage_range("planar.fourstep"):
+        m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
+        lead = m.shape[:-2]
+        return m.swapaxes(-1, -2).reshape(*lead, n)
 
 
 def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
@@ -220,10 +222,11 @@ def _argmax_bins_ops(xr: torch.Tensor, xi: torch.Tensor, n: int, mxu_dtype=None,
         if with_peak:
             return bins, mag2.amax(dim=-1)
         return bins
-    m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
-    lead = m.shape[:-2]
-    n2, n1 = m.shape[-2], m.shape[-1]
-    bins, peak = _argmax_natural(m.reshape(*lead, n2 * n1), n1, n2)
+    with stage_range("planar.fourstep"):
+        m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
+        lead = m.shape[:-2]
+        n2, n1 = m.shape[-2], m.shape[-1]
+        bins, peak = _argmax_natural(m.reshape(*lead, n2 * n1), n1, n2)
     if with_peak:
         return bins, peak
     return bins
