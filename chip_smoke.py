@@ -195,7 +195,7 @@ Imports no JAX. Phases, one line each (or a few):
    -> demodulate_planar(fused=True) -> decode_payload, 8 x 8192 frames at
    a 0.3-bin CFO) untraced with its stage ranges and host-sync counters
    against the same call with them patched to no-ops, in turns: at most
-   2 % slower, three host syncs a call, one dechirp launch a call; (c) both kernels
+   2 % slower, two host syncs a call, one dechirp launch a call; (c) both kernels
    alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
    SF7 main path's): fused_demod without and with the Hann window,
    bf16_decide with and without rotation, on tone rows whose CFO and
@@ -206,7 +206,12 @@ Imports no JAX. Phases, one line each (or a few):
    cell's shape, 8 x 8192 x 6,656 samples: its planes bit-equal to its
    eager twin's, both times, its bytes bound and share, the memory a call
    takes beyond its inputs; then on an offset view (its scalar path),
-   bit-equal too;
+   bit-equal too; (e) the windows kernel (csrc/windows.cu) at the same
+   shape, 52 x 128 windows a frame, random nonzero offsets: its planes
+   bit-equal to its eager twin's (pad, int64 index, gather, select), both
+   times, its bytes bound and share, the memory a call takes; its launches
+   and zero-offset views on each path (1 and 0 a bulk call, no launch on
+   the block receiver's paths);
 21. the repo-level twins of the files that drive the JAX package: (a)
    torch_graft_entry.entry's forward on the card, its decisions equal to
    the same forward on the CPU, the payloads back, sync 0x12, its CUDA-event
@@ -253,6 +258,7 @@ from lora_phy_tpu_torch.ops.chirp import base_downchirp_planar
 from lora_phy_tpu_torch.ops import bf16_decide as bf16
 from lora_phy_tpu_torch.ops import dechirp as dechirp_k
 from lora_phy_tpu_torch.ops import fused_demod as fused
+from lora_phy_tpu_torch.ops import windows as windows_k
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # HBM bandwidth; one definition, in the port's profiling module
 from lora_phy_tpu_torch.utils.profiling import H100_F32_FLOPS as PEAK_F32_FLOPS
@@ -332,9 +338,11 @@ BF16_SF5_FRAMES = 32768
 BF16_SF4_FRAMES, BF16_SF6_FRAMES = 65536, 19648
 
 
-# the bf16 decision kernel's, fused_demod's and the dechirp kernel's
-# launches on each path, read by read_launches
+# the bf16 decision kernel's, fused_demod's, the dechirp kernel's and the
+# windows kernel's launches on each path, and the window gather's calls
+# that took the zero-offset view, read by read_launches
 BF16_BY_PATH, FUSED_BY_PATH, DECHIRP_BY_PATH = {}, {}, {}
+WINDOWS_BY_PATH, ALIGNED_BY_PATH = {}, {}
 
 
 def reset_launches():
@@ -342,15 +350,19 @@ def reset_launches():
     fused.LAUNCHES = 0
     bf16.LAUNCHES = 0
     dechirp_k.LAUNCHES = 0
+    windows_k.LAUNCHES = windows_k.ALIGNED = 0
 
 
 def read_launches(path):
     """Read the counters just after ``path``: each kernel's launches are
-    added to its BF16_BY_PATH / FUSED_BY_PATH / DECHIRP_BY_PATH entry;
+    added to its BF16_BY_PATH / FUSED_BY_PATH / DECHIRP_BY_PATH /
+    WINDOWS_BY_PATH entry, the aligned window gathers to ALIGNED_BY_PATH;
     fused_demod's are returned."""
     BF16_BY_PATH[path] = BF16_BY_PATH.get(path, 0) + bf16.LAUNCHES
     FUSED_BY_PATH[path] = FUSED_BY_PATH.get(path, 0) + fused.LAUNCHES
     DECHIRP_BY_PATH[path] = DECHIRP_BY_PATH.get(path, 0) + dechirp_k.LAUNCHES
+    WINDOWS_BY_PATH[path] = WINDOWS_BY_PATH.get(path, 0) + windows_k.LAUNCHES
+    ALIGNED_BY_PATH[path] = ALIGNED_BY_PATH.get(path, 0) + windows_k.ALIGNED
     return fused.LAUNCHES
 
 
@@ -589,6 +601,8 @@ def main():
     torch.cuda.empty_cache()
     record20 = phase20d_dechirp(dev, card)
     torch.cuda.empty_cache()
+    record20e = phase20e_windows(dev, card)
+    torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -606,7 +620,9 @@ def main():
     record["launches"] += coded_launches
     record19["launches_by_path"] = dict(BF16_BY_PATH)
     record20["launches_by_path"] = dict(DECHIRP_BY_PATH)
-    print(json.dumps({"kernels": [record, record19, record20]}), flush=True)
+    record20e["launches_by_path"] = dict(WINDOWS_BY_PATH)
+    record20e["aligned_by_path"] = dict(ALIGNED_BY_PATH)
+    print(json.dumps({"kernels": [record, record19, record20, record20e]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
@@ -790,12 +806,17 @@ def phase6_barrel_and_stream(dev, xr1, xi1, pay1):
     width, and BatchStreamDemodulator over one phase-5 channel."""
     frames = 64
     n_pay = 2 * BLOCK_PAYLOAD
-    for p, label in ((LoraParams(sf=7, osr=2), "osr 2"),
-                     (LoraParams(sf=7, window=Window.HANN), "osr 1 Hann")):
+    for p, label, path in ((LoraParams(sf=7, osr=2), "osr 2", "barrel_osr2"),
+                           (LoraParams(sf=7, window=Window.HANN), "osr 1 Hann",
+                            "barrel_hann")):
         xr, xi, pay, _ = block_stream(dev, p, CHANNELS, frames)
+        torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
         blk = sync.receive_block_planar(xr, xi, p, n_pay, max_frames=frames,
                                         min_power_db=-30.0)
+        torch.cuda.synchronize()
+        read_launches(path)
         n_found = check_block(blk, pay, CHANNELS * frames, f"phase 6 {label}")
         print(f"phase 6: barrel path {label}: {n_found} of {CHANNELS * frames} frames "
               f"found and decoded bit-exact, sync 0x12 "
@@ -3200,7 +3221,7 @@ def phase20b_stage_profile(dev, card):
 
 
 # the modules whose stage ranges and host syncs the bulk call passes
-BULK_MARKED = (planar, modem, coded)
+BULK_MARKED = (planar, windows_k, modem, coded)
 
 
 @contextlib.contextmanager
@@ -3224,7 +3245,8 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
     coded call: host wall ms of ``calls`` back-to-back calls ending in a
     synchronize, with the markers and with them patched to no-ops, in
     turns (on, off, off, on); at most 2 % apart by the medians. Each call
-    passes three host syncs."""
+    passes two host syncs (the estimate's, and the window gather's one
+    read of the offsets for both planes)."""
     from lora_phy_tpu_torch.utils import profiling
 
     p = LoraParams(sf=7)
@@ -3278,7 +3300,7 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
           f"{t_on / t_off - 1:+.4f}); {syncs} host syncs a call", flush=True)
     print(f"phase 20 (b): bulk call's kernel launches: dechirp {DECHIRP_BY_PATH['bulk']}, "
           f"fused_demod {FUSED_BY_PATH['bulk']}, bf16_decide {BF16_BY_PATH['bulk']}", flush=True)
-    check(syncs == 3, f"phase 20 (b) bulk: {syncs} host syncs a call, want 3")
+    check(syncs == 2, f"phase 20 (b) bulk: {syncs} host syncs a call, want 2")
     check(t_on <= 1.02 * t_off, f"phase 20 (b) bulk: the markers cost {t_on - t_off:.3f} ms, "
           f"over 2 % of the {t_off:.3f} ms call")
     torch.cuda.empty_cache()
@@ -3341,6 +3363,69 @@ def phase20d_dechirp(dev, card):
           f"bit-equal, {t_view:.3f} ms (eager twin {t_view_twin:.3f} ms)", flush=True)
     del xr, xi, wide, vr, vi, yr, yi, wr, wi
     return {"name": "dechirp", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/dechirp.cu",
+            "replaces": None, "launches": 1, "max_abs_err": 0,
+            "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": "bytes",
+            # the eager twin is the only PyTorch yardstick; no library call
+            "library_ms": None}
+
+
+def phase20e_windows(dev, card):
+    """The windows kernel at the bulk cell's shape (8 x 8192 frames of 52
+    SF7 symbols, random nonzero offsets within a symbol) against its eager
+    twin (``shifted_windows_reference``: pad, int64 index, gather and
+    select a plane): bit-equal planes, both times, the bytes bound (both
+    planes read and written once) and the share; the kernel's launches and
+    the zero-offset views on each path of this run (1 and 0 a bulk call, 0
+    and 0 or more on the gateway paths). Returns the kernel's record for
+    the JSON line."""
+    n, nsym = 128, 52
+    gen = torch.Generator(device=dev).manual_seed(2023)
+    xr = torch.randn(DECHIRP_SHAPE, generator=gen, device=dev)
+    xi = torch.randn(DECHIRP_SHAPE, generator=gen, device=dev)
+    mag = torch.randint(1, n, DECHIRP_SHAPE[:-1], generator=gen, device=dev, dtype=torch.int32)
+    sign = torch.randint(0, 2, DECHIRP_SHAPE[:-1], generator=gen, device=dev, dtype=torch.int32)
+    t_off = mag * (2 * sign - 1)
+    del mag, sign
+    reset_launches()
+    yr, yi = windows_k.shifted_windows(xr, xi, nsym, n, 1, t_off)
+    torch.cuda.synchronize()
+    check(windows_k.LAUNCHES == 1 and windows_k.ALIGNED == 0,
+          f"phase 20 (e): {windows_k.LAUNCHES} launches, {windows_k.ALIGNED} aligned in one call")
+    wr, wi = windows_k.shifted_windows_reference(xr, xi, nsym, n, 1, t_off)
+    check(torch.equal(yr, wr) and torch.equal(yi, wi),
+          "phase 20 (e): the kernel's planes differ from the twin's")
+    del yr, yi, wr, wi
+    t_kernel = cuda_ms(lambda: windows_k.shifted_windows_kernel(xr, xi, nsym, n, 1, t_off),
+                       iters=10, calls=5)
+    t_call = cuda_ms(lambda: windows_k.shifted_windows(xr, xi, nsym, n, 1, t_off), iters=10)
+    t_twin = cuda_ms(lambda: windows_k.shifted_windows_reference(xr, xi, nsym, n, 1, t_off),
+                     iters=5, calls=3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    windows_k.shifted_windows_kernel(xr, xi, nsym, n, 1, t_off)
+    peak_kernel = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    windows_k.shifted_windows_reference(xr, xi, nsym, n, 1, t_off)
+    peak_twin = torch.cuda.max_memory_allocated(dev) - base
+    samples = xr.numel()
+    nbytes = 16 * samples + 4 * t_off.numel()
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"phase 20 (e): {card}: shifted windows on {DECHIRP_SHAPE} ({samples / 1e6:.1f} M "
+          f"samples a plane, offsets within +-{n - 1}, none 0): CUDA kernel {t_kernel:.3f} ms "
+          f"({nbytes / t_kernel / 1e9:.3f} TB/s), the wrapper's call with its offset read "
+          f"{t_call:.3f} ms, eager twin {t_twin:.3f} ms; planes bit-equal; bound "
+          f"{bound_ms:.3f} ms by bytes ({nbytes:.4g} B), {bound_ms / t_kernel:.3f} of it; "
+          f"memory a call beyond the inputs {peak_kernel / 1e9:.3f} GB (twin "
+          f"{peak_twin / 1e9:.3f} GB)", flush=True)
+    del xr, xi, t_off
+    print(f"phase 20 (e): windows kernel launches by path: {WINDOWS_BY_PATH}; zero-offset "
+          f"views by path: {ALIGNED_BY_PATH}", flush=True)
+    check(WINDOWS_BY_PATH.get("bulk") == 1 and ALIGNED_BY_PATH.get("bulk") == 0,
+          "phase 20 (e): the bulk call does not launch the windows kernel once")
+    for path in ("block", "block_profile", "barrel_osr2", "barrel_hann"):
+        check(WINDOWS_BY_PATH.get(path, 0) == 0,
+              f"phase 20 (e): the gateway path {path} launched the windows kernel")
+    return {"name": "windows", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/windows.cu",
             "replaces": None, "launches": 1, "max_abs_err": 0,
             "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": "bytes",
             # the eager twin is the only PyTorch yardstick; no library call

@@ -20,7 +20,7 @@ import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "fused_demod.cu", _PKG / "csrc" / "bf16_decide.cu",
-           _PKG / "csrc" / "dechirp.cu")
+           _PKG / "csrc" / "dechirp.cu", _PKG / "csrc" / "windows.cu")
 BUILD_DIR = _PKG.parent / "build" / "lora_phy_tpu_torch"
 LIBRARY = BUILD_DIR / "liblora_phy_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -96,6 +96,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "lora_fused_demod": ([ptr] * 8 + [i64, i32, ptr], i32),
         "lora_bf16_decide": ([ptr] * 4 + [i64, i64, i32] + [ptr] * 9, i32),
         "lora_dechirp": ([ptr, i64, i64] * 2 + [ptr] * 4 + [i64] * 3 + [ptr], i32),
+        "lora_windows": ([ptr, i64, i64] * 2 + [ptr] * 3 + [i64] * 5 + [ptr], i32),
         "lora_cuda_error_string": ([i32], ctypes.c_char_p),
     }
     for name, (argtypes, restype) in signatures.items():

@@ -33,10 +33,11 @@ import torch
 from .. import LoraParams, device_of, device_table
 from ..models.modem import (_derotation_vector, _osr_phase_view,
                             _pick_osr_phase, _round_half_away,
-                            _shifted_symbol_gather, _sync_from_symbols,
-                            _tie_power_db, _window_tensor, _wrap_pi)
+                            _sync_from_symbols, _tie_power_db,
+                            _window_tensor, _wrap_pi)
 from ..utils.profiling import host_sync, stage_range
 from .fft import _dft_mats
+from .windows import shifted_windows
 
 _TWO_PI = 2.0 * math.pi
 _TWO_PI_F32 = float(np.float32(_TWO_PI))
@@ -492,11 +493,11 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     ``planar.windows`` (:func:`_demod_stage_planar`), then
     ``planar.decide`` around the per-symbol stage (the kernel, the bf16
     kernel or torch ops; the sync word is outside it). On a CUDA device
-    the call makes three host syncs
+    the call makes two host syncs
     (:func:`..utils.profiling.host_sync`): one in the estimate
-    (:func:`detect_planar`), one in each plane's window gather
-    (:func:`..models.modem._shifted_symbol_gather`); ``known_offsets``
-    leaves out the first."""
+    (:func:`detect_planar`), one in the window gather, which reads
+    ``t_off == 0`` once for both planes (:func:`.windows.shifted_windows`);
+    ``known_offsets`` leaves out the first."""
     mxu_dtype = _mxu_dtype(precision)
     if fused and mxu_dtype is not None:
         raise ValueError("the fused kernel runs f32 only; "
@@ -551,10 +552,10 @@ def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
     ``dec_phase`` picks the decimation phase of the symbol windows: pass
     ``osr-1`` when receiving the reference's default TX fold with an
     injected time offset of 0 (see modem._shifted_symbol_gather). On a
-    CUDA device the host syncs are :func:`demodulate_planar`'s three:
+    CUDA device the host syncs are :func:`demodulate_planar`'s two:
     :func:`detect_planar`'s copy of ``N`` in the estimate (none with
-    ``known_offsets``) and the ``t_off == 0`` read of each plane's window
-    gather. ``precision='bf16'`` rounds the DFT operands to bf16 (torch
+    ``known_offsets``) and the window gather's one ``t_off == 0`` read for
+    both planes. ``precision='bf16'`` rounds the DFT operands to bf16 (torch
     ops on every device: the spectra are floats, not decisions)."""
     mxu_dtype = _mxu_dtype(precision)
     yr, yi, rate, t_off, scale, cfo, time_offset = _demod_stage_planar(
@@ -620,8 +621,7 @@ def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
 
     with stage_range("planar.windows"):
         t_off = _round_half_away(time_offset).to(torch.int32)
-        yr = _shifted_symbol_gather(xr, total_symbols, n, osr, t_off, dec_phase)
-        yi = _shifted_symbol_gather(xi, total_symbols, n, osr, t_off, dec_phase)
+        yr, yi = shifted_windows(xr, xi, total_symbols, n, osr, t_off, dec_phase)
     return yr, yi, rate, t_off, scale, cfo, time_offset
 
 

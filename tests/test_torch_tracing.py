@@ -21,7 +21,7 @@ import torch
 from lora_phy_tpu_torch import LoraParams
 from lora_phy_tpu_torch.models import coded, modem, stream
 from lora_phy_tpu_torch.models import sync as tsync
-from lora_phy_tpu_torch.ops import planar
+from lora_phy_tpu_torch.ops import planar, windows
 from lora_phy_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
@@ -34,7 +34,7 @@ BULK_STAGES = ("planar.dechirp", "planar.scale", "planar.estimate", "planar.wind
                "planar.decide", "coded.decode")
 NEW_RANGES = (*BULK_STAGES, "modem.decode", "host_sync")
 # host syncs a call makes on a CUDA device (found there by the sync debug mode)
-BULK_SYNCS, CIRCULAR_SYNCS = 3, 1
+BULK_SYNCS, CIRCULAR_SYNCS = 2, 1
 
 
 def rotate(xr, xi, cfo_bins: float, n: int):
@@ -93,7 +93,7 @@ def test_bulk_ranges_open_in_order_without_nesting():
     syncs = [s for s in spans if s[0] == "host_sync"]
     assert len(syncs) == BULK_SYNCS
     inside = [next(st[0] for st in stages if st[1] <= s[1] and s[2] <= st[2]) for s in syncs]
-    assert inside == ["planar.estimate", "planar.windows", "planar.windows"]
+    assert inside == ["planar.estimate", "planar.windows"]
 
 
 def test_gateway_and_host_decode_open_their_ranges():
@@ -167,7 +167,7 @@ def test_chip_smoke_markers_off_silences_and_restores():
         assert traced_ranges(lambda: bulk_call(xr, xi)) == []
     assert profiling.HOST_SYNCS == before
     assert planar.stage_range is coded.stage_range is modem.stage_range is profiling.stage_range
-    assert planar.host_sync is modem.host_sync is profiling.host_sync
+    assert planar.host_sync is windows.host_sync is profiling.host_sync
     bulk_call(xr, xi)
     assert profiling.HOST_SYNCS - before == BULK_SYNCS
 
