@@ -253,7 +253,7 @@ import torch
 
 from lora_phy_tpu_torch import Bandwidth, LoraParams, Window, _build, device_table
 from lora_phy_tpu_torch.models import coded, modem, sic, soft, stream, sync
-from lora_phy_tpu_torch.ops import channelizer, impair, planar
+from lora_phy_tpu_torch.ops import channelizer, fft, impair, planar
 from lora_phy_tpu_torch.ops.chirp import base_downchirp_planar
 from lora_phy_tpu_torch.ops import bf16_decide as bf16
 from lora_phy_tpu_torch.ops import dechirp as dechirp_k
@@ -2735,14 +2735,14 @@ def bf16_library_ms(fr, fi, n):
     bf = torch.bfloat16
     if n <= 128:
         a = torch.cat([fr, fi], dim=-1).to(bf)
-        m = torch.from_numpy(planar._combined_dft_mat(n)).to(fr.device).to(bf)
+        m = torch.from_numpy(fft._combined_dft_mat(n)).to(fr.device).to(bf)
         return cuda_ms(lambda: torch.matmul(a, m), calls=10)
-    m2, m1r, twr, twi, n1, n2 = device_table(planar._scrambled_mats, n, device=fr.device)
+    m2, m1r, twr, twi, n1, n2 = device_table(fft._scrambled_mats, n, device=fr.device)
     lead = fr.shape[:-1]
     xst = torch.cat([fr.reshape(*lead, n2, n1).swapaxes(-1, -2),
                      fi.reshape(*lead, n2, n1).swapaxes(-1, -2)], dim=-1)
     a1 = xst.to(bf).reshape(-1, 2 * n2)
-    ar_ai = planar._mm(xst, m2, bf)
+    ar_ai = fft._mm(xst, m2, bf)
     ar, ai = ar_ai[..., :n2], ar_ai[..., n2:]
     a2 = torch.cat([(ar * twr - ai * twi).swapaxes(-1, -2),
                     (ar * twi + ai * twr).swapaxes(-1, -2)], dim=-1).to(bf).reshape(-1, 2 * n1)
@@ -2853,11 +2853,13 @@ def bf16_ablation(card, label, yr, yi, cr, si, rows_per_rot, ablations):
         cu = out_dir / f"bf16_decide_{label_tag}_{name}.cu"
         cu.write_text(bf16_ablation_source(edits))
         return name, _build.declare(ctypes.CDLL(str(
-            _build.compile_library([cu], out_dir / f"bf16_decide_{label_tag}_{name}.so"))))
+            _build.compile_library([cu], out_dir / f"bf16_decide_{label_tag}_{name}.so"))),
+            bf16.ENTRY)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(ablations)) as pool:
-        libs = {"kernel": _build.load_library(), **dict(pool.map(build, ablations.items()))}
+        libs = {"kernel": _build.declare(_build.load_library(), bf16.ENTRY),
+                **dict(pool.map(build, ablations.items()))}
     t_build = time.perf_counter() - t0
     n = yr.shape[1]
     tables = [None if t is None else t.data_ptr() for t in bf16._kernel_tables(n, yr.device)]

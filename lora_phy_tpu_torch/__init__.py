@@ -5,8 +5,10 @@ to PyTorch, with the one Pallas kernel of the JAX package rewritten by
 hand in CUDA C++ for Hopper (``csrc/fused_demod.cu``) and the opt-in
 ``precision="bf16"`` decisions on the bf16 tensor cores in a second
 hand-written kernel (``csrc/bf16_decide.cu``); ``dechirp_planar`` runs as
-one pass of a third (``csrc/dechirp.cu``) on the card. Every function mirrors its
-JAX twin file for file:
+one pass of a third (``csrc/dechirp.cu``) and the demodulator's shifted
+windows of a fourth (``csrc/windows.cu``) on the card. Imports point one
+way, ``runners -> parallel -> models -> ops -> utils``; a function that
+does not sit in its JAX twin's file names the twin in its docstring:
 
   ops/coding.py       the coding primitives: Hamming 8/4 and 7/4, parity
                       5/4 and 6/4, Gray, nibbles, bit pack, whiteners,
@@ -15,10 +17,14 @@ JAX twin file for file:
                       the complex modulate_symbols / base_downchirp,
                       gen_chirp and the AWGN model chirps
   ops/fft.py          FFT backends (torch.fft, the four-step DFT matmul)
+                      and the planar DFT of the demodulators
   ops/detect.py       the complex detector (argmax, powers, fractional bin)
   ops/planar.py       planar (re, im) TX, dechirp and demodulation (f32,
                       or bf16 DFT operands), the preamble estimators,
-                      estimate / compensate offsets
+                      estimate / compensate offsets; above the ops below
+  ops/dechirp.py, ops/windows.py
+                      the dechirp and window-gather kernels' wrappers and
+                      their eager twins
   ops/fused_demod.py  the fused scale + derotate + FFT + argmax kernel's
                       wrapper and its plain PyTorch twin
   ops/bf16_decide.py  the bf16 derotate + DFT + argmax kernel's wrapper

@@ -6,10 +6,16 @@ the objects are linked into one shared library under
 ``build/lora_phy_tpu_torch/`` beside the package, at first use and again
 whenever a source is newer than the library, and loaded with ``ctypes``.
 Nothing is compiled or loaded at import.
+
+Each kernel's wrapper in ``ops/`` holds its C entry point, a name and
+its parameter types (:data:`PTR`, :data:`I32`, :data:`I64`, the stream
+last), and launches it through :func:`launch`. A new kernel is its
+``.cu`` file, its entry in :data:`SOURCES`, its wrapper and its tests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -18,6 +24,10 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
+from .utils.profiling import launch_range
+
 _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "fused_demod.cu", _PKG / "csrc" / "bf16_decide.cu",
            _PKG / "csrc" / "dechirp.cu", _PKG / "csrc" / "windows.cu")
@@ -25,6 +35,8 @@ BUILD_DIR = _PKG.parent / "build" / "lora_phy_tpu_torch"
 LIBRARY = BUILD_DIR / "liblora_phy_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# ctypes types of the entry points' parameters
+PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def find_nvcc() -> str:
@@ -88,25 +100,48 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
     return compile_library(SOURCES, LIBRARY, verbose)
 
 
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of a library built from ``SOURCES`` (or
-    from a subset of them: an entry point the library lacks is skipped)."""
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    signatures = {
-        "lora_fused_demod": ([ptr] * 8 + [i64, i32, ptr], i32),
-        "lora_bf16_decide": ([ptr] * 4 + [i64, i64, i32] + [ptr] * 9, i32),
-        "lora_dechirp": ([ptr, i64, i64] * 2 + [ptr] * 4 + [i64] * 3 + [ptr], i32),
-        "lora_windows": ([ptr, i64, i64] * 2 + [ptr] * 3 + [i64] * 5 + [ptr], i32),
-        "lora_cuda_error_string": ([i32], ctypes.c_char_p),
-    }
-    for name, (argtypes, restype) in signatures.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, restype
+def declare(lib, *entries):
+    """Declare ``entries`` on ``lib`` (a library built from ``SOURCES`` or
+    from some of them) and return it. An entry is a C entry point's name
+    and its parameter types; every entry point returns 0 or a CUDA error
+    code."""
+    for name, argtypes in entries:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points."""
-    return declare(ctypes.CDLL(str(build())))
+    """Build if needed and load; declares ``lora_cuda_error_string``."""
+    lib = ctypes.CDLL(str(build()))
+    lib.lora_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.lora_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def _current_stream(device: torch.device, kernel: str):
+    """Enter ``device``'s guard and yield the handle of its current stream;
+    off a CUDA device there is no ``kernel``."""
+    if device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {device}")
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry, device: torch.device, range_name: str, *args) -> None:
+    """Launch the entry point ``entry`` (name, parameter types) of the
+    library with ``args`` and the current stream of ``device``, inside
+    ``launch_range(range_name)`` (``"<kernel>.launch"``). Raises
+    ``ValueError`` off a CUDA device and ``RuntimeError`` with the CUDA
+    error's text when the launch fails; the wrapper counts the launch
+    once this returns."""
+    kernel = range_name.removesuffix(".launch")
+    with _current_stream(device, kernel) as stream:
+        lib = declare(load_library(), entry)
+        with launch_range(range_name):
+            rc = getattr(lib, entry[0])(*args, stream)
+    if rc != 0:
+        msg = lib.lora_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")

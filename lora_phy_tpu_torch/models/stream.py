@@ -32,23 +32,19 @@ import numpy as np
 import torch
 
 from .. import LoraParams, device_of, device_table
+from ..ops.chirp import (_mod_chirps_planar, base_downchirp_planar, gen_chirp_np,
+                         modulate_symbols_planar)
+from ..ops.planar import (_preamble_phase_step, demodulate_spectrum_planar,
+                          estimate_preamble_planar)
 from . import coded, modem, sync
-
-QUARTER_DEN = 4  # 2.25 downchirps: 2 full + step/4 samples
-
-
-def frame_overhead_samples(params: LoraParams, preamble_len: int = 8) -> int:
-    """Samples before the payload symbols: preamble + 2 sync + 2.25 down."""
-    step = params.step
-    return (preamble_len + 2) * step + 2 * step + step // QUARTER_DEN
+from . import soft as softmod
+from .sync import QUARTER_DEN, frame_overhead_samples
 
 
 @functools.lru_cache(maxsize=16)
 def _down_section(n: int, osr: int, scale: float, amplitude: float):
     """(re, im) float32 planes of the phase-continuous 2.25-symbol
     downchirp, from the float64 host oracle (as the JAX twin)."""
-    from ..ops.chirp import gen_chirp_np
-
     step = n * osr
     down, _ = gen_chirp_np(n, osr, 2 * step + step // QUARTER_DEN, 0.0,
                            down=True, ampl=amplitude, bw_scale=scale)
@@ -89,8 +85,6 @@ def _frame_planes(symbols, params: LoraParams, preamble_len: int,
                   amplitude: float, sync_symbols, phase_carry: bool, device):
     """The (re, im) planes of :func:`frame_modulate` and
     :func:`frame_modulate_planar`."""
-    from ..ops.chirp import _mod_chirps_planar, modulate_symbols_planar
-
     dev = device_of(symbols, device)
     symbols = torch.as_tensor(symbols, device=dev)
     step = params.step
@@ -143,8 +137,6 @@ def _as_stream(stream) -> torch.Tensor:
 def _host_downchirp(sf: int, bw_scale: float, osr: int) -> np.ndarray:
     """The base downchirp as a host complex64 array (the JAX twin's
     ``np.asarray(base_downchirp(...))``)."""
-    from ..ops.chirp import base_downchirp_planar
-
     re, im = base_downchirp_planar(sf, bw_scale, osr)
     out = np.empty(re.shape, np.complex64)
     out.real, out.imag = re, im
@@ -242,9 +234,6 @@ def frame_demodulate(stream, params: LoraParams, n_payload_symbols: int,
     framework's own modulator; ``0.0`` for gr-lora_sdr transmitters).
     ``sync_result``: a precomputed :func:`frame_sync` result, so the
     whole-stream scan is not run again."""
-    from ..ops.planar import (_preamble_phase_step, demodulate_spectrum_planar,
-                              estimate_preamble_planar)
-
     stream = _as_stream(stream)
     res = sync_result if sync_result is not None else frame_sync(
         stream, params, preamble_len, min_power_db=min_power_db)
@@ -494,8 +483,6 @@ def frame_decode_adaptive(samples, params: LoraParams, preamble_len: int = 8,
     hard-decided. Host reads: the sync scan's candidates and probe
     windows, the 8 header bins, then the payload, ``crc_ok``,
     ``fec_errors`` (and ``soft_margin``) in one copy."""
-    from . import soft as softmod
-
     samples = _as_stream(samples)
     res = frame_sync(samples, params, preamble_len, min_power_db=min_power_db)
     if not res.found:

@@ -34,15 +34,25 @@ import torch
 import torch.nn.functional as F
 
 from .. import LoraParams, device_table
+from ..ops.channelizer import channelize_planar
 from ..ops.chirp import base_downchirp_planar, gen_chirp_np
 from ..ops.planar import (_decimation_phase, _preamble_phase_step,
-                          argmax_bins_planar, as_planes, dechirp_planar,
-                          dft_mag2_planar, dft_planar,
+                          _sync_from_symbols, argmax_bins_planar, as_planes,
+                          dechirp_planar, dft_mag2_planar, dft_planar,
                           demodulate_spectrum_planar, detect_planar,
                           estimate_preamble_planar,
                           estimate_preamble_robust_planar, estimate_sro_planar)
+from ..utils.params import _window_table
 from ..utils.profiling import stage_range
-from .modem import _sync_from_symbols, _window_table
+
+QUARTER_DEN = 4  # 2.25 downchirps: 2 full + step/4 samples
+
+
+def frame_overhead_samples(params: LoraParams, preamble_len: int = 8) -> int:
+    """Samples before the payload symbols: preamble + 2 sync + 2.25 down.
+    JAX twin: ``lora_phy_tpu/models/stream.py:frame_overhead_samples``."""
+    step = params.step
+    return (preamble_len + 2) * step + 2 * step + step // QUARTER_DEN
 
 
 class SyncScan(NamedTuple):
@@ -350,8 +360,6 @@ def _receive_block_circular(xr, xi, params: LoraParams,
     ``probes``, ``sections``, ``dechirp``, ``estimator``, ``demod``,
     ``sro`` (``front`` is the scan in :func:`receive_block_planar`);
     ``tools/torch_profile_block_rx.py`` reads them."""
-    from .stream import frame_overhead_samples     # stream imports this module
-
     n, osr, step = params.n, params.osr, params.step
     assert osr == 1 and step == n
     lead = xr.shape[:-1]
@@ -496,10 +504,7 @@ def _receive_block_circular(xr, xi, params: LoraParams,
         corr_p = torch.remainder(q_p - cfo_bins + dq_rot, n)[..., None]
         s_idx = torch.arange(2 + n_payload_symbols, dtype=torch.int32, device=dev)
         bins = torch.remainder(raw + torch.where(s_idx < 2, corr_s, corr_p), n)
-        shift = (params.sf - 4) if params.sf > 4 else 0
-        hi = (bins[..., 0] >> shift) & 0x0F
-        lo = (bins[..., 1] >> shift) & 0x0F
-        sync_word = ((hi << 4) | lo).to(torch.uint8)
+        sync_word = _sync_from_symbols(bins[..., 0], bins[..., 1], params.sf)
         syms = bins[..., 2:]
 
     with stage_range("sro"):
@@ -569,8 +574,6 @@ def receive_block_planar(xr: torch.Tensor, xi: torch.Tensor,
     ``with_spectra=True`` also returns the payload spectra ``[..., K,
     n_payload, n]`` in true bin order: |DFT|², or the combining scores
     under ``pre_acc`` > 1 (the statistic the decisions use)."""
-    from .stream import frame_overhead_samples     # stream imports this module
-
     _check_pre_acc(pre_acc)
     n, osr, step = params.n, params.osr, params.step
     lead = xr.shape[:-1]
@@ -884,8 +887,6 @@ def receive_wideband_planar(xr, xi, k: int, params: LoraParams,
     max_frames]`` (and the spectra with ``with_spectra``).
     ``min_power_db`` (default -30 dB, the Pothos demod examples' thresh)
     keeps quiet channels from syncing on silence or stopband leakage."""
-    from ..ops.channelizer import channelize_planar
-
     cr, ci = channelize_planar(xr, xi, k, taps_per_branch, device=device)
     return receive_block_planar(cr, ci, params, n_payload_symbols,
                                 max_frames, preamble_len,

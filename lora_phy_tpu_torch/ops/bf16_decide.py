@@ -24,15 +24,17 @@ near-ties (:func:`near_tie`).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from ..utils.profiling import launch_range
-from . import planar
+from .. import _build
+from .._build import I32, I64, PTR
+from . import fft
 
+# the C entry point of csrc/bf16_decide.cu
+ENTRY = ("lora_bf16_decide", (PTR,) * 4 + (I64, I64, I32) + (PTR,) * 9)
 # Launches of the CUDA kernel in this process: one per call of
 # bf16_decide_rows on CUDA tensors, so a run can show that its path went
 # through the kernel.
@@ -98,7 +100,7 @@ def bf16_decide_rows_reference(yr: torch.Tensor, yi: torch.Tensor, n: int,
     ``argmax_bins_planar(fr, fi, n, mxu_dtype=torch.bfloat16)`` in torch
     ops (int32 bins, and the float32 peak |.|² with ``with_peak``)."""
     fr, fi = _derotate(yr, yi, n, cr, si, rows_per_rot)
-    return planar._argmax_bins_ops(fr, fi, n, torch.bfloat16, with_peak)
+    return fft._argmax_bins_ops(fr, fi, n, torch.bfloat16, with_peak)
 
 
 def _pair_tables(m: np.ndarray, k: int, kp: int, np_: int):
@@ -187,16 +189,16 @@ def _kernel_tables(n: int, device: torch.device):
         return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).to(device)
 
     if n in WGMMA_N:
-        wa = _pair_tables(planar._combined_dft_mat(n), n, n, n)
+        wa = _pair_tables(fft._combined_dft_mat(n), n, n, n)
         return bf16(wgmma_layout(wa[0])), bf16(wgmma_layout(wa[1])), None, None, None, None
     if n == N16_N:
-        wa = _pair_tables(planar._combined_dft_mat(n), n, n, n)
+        wa = _pair_tables(fft._combined_dft_mat(n), n, n, n)
         cols = _wgmma_columns(n)
         return bf16(wa[0][:, cols]), bf16(wa[1][:, cols]), None, None, None, None
     if n <= 128:
-        wa = _pair_tables(planar._combined_dft_mat(n), n, max(n, 16), max(n, 8))
+        wa = _pair_tables(fft._combined_dft_mat(n), n, max(n, 16), max(n, 8))
         return bf16(wa[0]), bf16(wa[1]), None, None, None, None
-    m2, m1r, twr, twi, n1, n2 = planar._scrambled_mats(n)
+    m2, m1r, twr, twi, n1, n2 = fft._scrambled_mats(n)
     wa = [wgmma_layout(t, permute=False) for t in _pair_tables(m2, n2, n2, n2)]
     wb = [wgmma_layout(t, permute=False) for t in _pair_tables(m1r, n1, n1, n1)]
     tw = [torch.from_numpy(fourstep_twiddles(a)).to(device) for a in (twr, twi)]
@@ -244,12 +246,6 @@ def bf16_decide_rows(yr: torch.Tensor, yi: torch.Tensor, n: int,
     _check(yr, yi, n, cr, si, rows_per_rot)
     if yr.device.type == "cpu":
         return bf16_decide_rows_reference(yr, yi, n, cr, si, rows_per_rot, with_peak)
-    if yr.device.type != "cuda":
-        raise ValueError(f"no bf16 decision kernel for device {yr.device}")
-
-    from .._build import load_library
-
-    lib = load_library()
     wa_r, wa_i, wb_r, wb_i, twr, twi = _kernel_tables(n, yr.device)
     rows = yr.shape[0]
     out = torch.empty(rows, dtype=torch.int32, device=yr.device)
@@ -258,14 +254,9 @@ def bf16_decide_rows(yr: torch.Tensor, yi: torch.Tensor, n: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(yr.device), launch_range("bf16_decide.launch"):
-        stream = torch.cuda.current_stream(yr.device).cuda_stream
-        rc = lib.lora_bf16_decide(
-            ptr(yr), ptr(yi), ptr(cr), ptr(si), ctypes.c_longlong(rows),
-            ctypes.c_longlong(rows_per_rot), ctypes.c_int(n), ptr(wa_r), ptr(wa_i),
-            ptr(wb_r), ptr(wb_i), ptr(twr), ptr(twi), ptr(out), ptr(peak), stream)
-    if rc != 0:
-        msg = lib.lora_cuda_error_string(rc).decode()
-        raise RuntimeError(f"bf16_decide kernel launch failed: CUDA error {rc} ({msg})")
+    _build.launch(ENTRY, yr.device, "bf16_decide.launch",
+                  ptr(yr), ptr(yi), ptr(cr), ptr(si), rows, rows_per_rot, n,
+                  ptr(wa_r), ptr(wa_i), ptr(wb_r), ptr(wb_i), ptr(twr), ptr(twi),
+                  ptr(out), ptr(peak))
     LAUNCHES += 1
     return (out, peak) if with_peak else out

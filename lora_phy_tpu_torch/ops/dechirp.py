@@ -17,13 +17,15 @@ writes new contiguous planes; the inputs are never written.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from ..utils.profiling import launch_range
+from .. import _build
+from .._build import I64, PTR
 
+# the C entry point of csrc/dechirp.cu
+ENTRY = ("lora_dechirp", (PTR, I64, I64) * 2 + (PTR,) * 4 + (I64,) * 3 + (PTR,))
 # Launches of the CUDA kernel in this process: one per call of dechirp on
 # CUDA tensors, so a run can show that its path went through the kernel.
 LAUNCHES = 0
@@ -52,8 +54,6 @@ def dechirp(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor, di: torch.Tens
     global LAUNCHES
     if xr.device.type == "cpu":
         return dechirp_reference(xr, xi, dr, di)
-    if xr.device.type != "cuda":
-        raise ValueError(f"no dechirp kernel for device {xr.device}")
     for name, t in (("xr", xr), ("xi", xi), ("dr", dr), ("di", di)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -65,10 +65,6 @@ def dechirp(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor, di: torch.Tens
     if dr.shape != (step,) or di.shape != (step,) or not (dr.is_contiguous()
                                                            and di.is_contiguous()):
         raise ValueError("dr and di must be contiguous [step] planes")
-
-    from .._build import load_library
-
-    lib = load_library()
     lead, length = xr.shape[:-1], (xr.shape[-1] // step) * step
     rows = math.prod(lead)
     # [rows, length] views: a lead that no single row stride spans is copied
@@ -76,16 +72,10 @@ def dechirp(xr: torch.Tensor, xi: torch.Tensor, dr: torch.Tensor, di: torch.Tens
     ai = xi[..., :length].reshape(rows, length)
     yr = torch.empty(ar.shape, dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    i64 = ctypes.c_longlong
-    with torch.cuda.device(xr.device), launch_range("dechirp.launch"):
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = lib.lora_dechirp(
-            ar.data_ptr(), i64(ar.stride(0)), i64(ar.stride(1)),
-            ai.data_ptr(), i64(ai.stride(0)), i64(ai.stride(1)),
-            dr.data_ptr(), di.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            i64(rows), i64(length), i64(step), stream)
-    if rc != 0:
-        msg = lib.lora_cuda_error_string(rc).decode()
-        raise RuntimeError(f"dechirp kernel launch failed: CUDA error {rc} ({msg})")
+    _build.launch(ENTRY, xr.device, "dechirp.launch",
+                  ar.data_ptr(), ar.stride(0), ar.stride(1),
+                  ai.data_ptr(), ai.stride(0), ai.stride(1),
+                  dr.data_ptr(), di.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                  rows, length, step)
     LAUNCHES += 1
     return yr.reshape(*lead, length), yi.reshape(*lead, length)

@@ -21,16 +21,17 @@ scan (LoRaDetector.hpp:52-57).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .. import LoraParams, device_table
-from ..models.modem import _window_table
-from ..utils.profiling import launch_range
+from .. import LoraParams, _build, device_table
+from .._build import I32, I64, PTR
+from ..utils.params import _window_table
 
+# the C entry point of csrc/fused_demod.cu
+ENTRY = ("lora_fused_demod", (PTR,) * 8 + (I64, I32, PTR))
 # Launches of the CUDA kernel in this process: one per call of
 # fused_detect_rows on CUDA tensors, so a run can show that its main
 # path went through the kernel.
@@ -137,28 +138,16 @@ def fused_detect_rows(xr: torch.Tensor, xi: torch.Tensor, start: torch.Tensor,
                  "scale_rows": scale_rows}, n)
     if xr.device.type == "cpu":
         return fused_detect_rows_reference(xr, xi, start, rate_rows, params, scale_rows)
-    if xr.device.type != "cuda":
-        raise ValueError(f"no fused kernel for device {xr.device}")
     if n not in CUDA_N:
         raise ValueError(f"the CUDA kernel is built for N in {CUDA_N}, got {n}")
-
-    from .._build import load_library
-
-    lib = load_library()
     twiddle = device_table(_twiddles, n, device=xr.device)
     window = device_table(_window_table, params, device=xr.device)
     out = torch.empty(xr.shape[0], dtype=torch.int32, device=xr.device)
-    with torch.cuda.device(xr.device), launch_range("fused_demod.launch"):
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = lib.lora_fused_demod(
-            xr.data_ptr(), xi.data_ptr(), start.data_ptr(), rate_rows.data_ptr(),
-            None if scale_rows is None else scale_rows.data_ptr(),
-            None if window is None else window.data_ptr(),
-            twiddle.data_ptr(), out.data_ptr(),
-            ctypes.c_longlong(xr.shape[0]), ctypes.c_int(n), stream)
-    if rc != 0:
-        msg = lib.lora_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_demod kernel launch failed: CUDA error {rc} ({msg})")
+    _build.launch(ENTRY, xr.device, "fused_demod.launch",
+                  xr.data_ptr(), xi.data_ptr(), start.data_ptr(), rate_rows.data_ptr(),
+                  None if scale_rows is None else scale_rows.data_ptr(),
+                  None if window is None else window.data_ptr(),
+                  twiddle.data_ptr(), out.data_ptr(), xr.shape[0], n)
     LAUNCHES += 1
     return out
 

@@ -2,7 +2,16 @@
 demodulation — the PyTorch twin of ``lora_phy_tpu/ops/planar.py``: the
 main path, the preamble (plain and multipath-robust) and clock-drift
 estimators, the spectrum demod that the block receiver
-(:mod:`..models.sync`) runs, and the public estimate / compensate API.
+(:mod:`..models.sync`) runs, the public estimate / compensate API, and
+the helpers these share (rounding, phase wrap, the osr-phase view and
+pick, the derotation, the sync byte, the window tensor), whose JAX
+twins are in ``lora_phy_tpu/models/modem.py``.
+
+This module sits above the ops it dispatches to: the planar DFT of
+:mod:`.fft`, the hand kernels' wrappers :mod:`.dechirp`,
+:mod:`.windows`, :mod:`.fused_demod` and :mod:`.bf16_decide`, and
+:mod:`.chirp`. None of them imports it, and it imports nothing of
+:mod:`..models`.
 
 Same estimator, tie-breaks and rounding as the JAX module (and so as the
 reference, src/phy/LoRaDemod.cpp:49-195), computed in float32 on
@@ -12,7 +21,7 @@ through the hand-written CUDA kernel of :mod:`.fused_demod`.
 
 Reduced precision is opt-in, as in the JAX module: ``mxu_dtype=torch.bfloat16``
 on the DFT functions and ``precision="bf16"`` on the demodulators round
-the DFT operands to bf16 and sum their products in float32 (:func:`_mm`).
+the DFT operands to bf16 and sum their products in float32 (:func:`.fft._mm`).
 On a CUDA tensor the bf16 decisions (``demodulate_planar`` and
 ``argmax_bins_planar``) run through the hand-written kernel of
 :mod:`.bf16_decide`; everything else stays torch ops. The JAX module's
@@ -31,12 +40,13 @@ import numpy as np
 import torch
 
 from .. import LoraParams, device_of, device_table
-from ..models.modem import (_derotation_vector, _osr_phase_view,
-                            _pick_osr_phase, _round_half_away,
-                            _sync_from_symbols, _tie_power_db,
-                            _window_tensor, _wrap_pi)
+from ..utils.params import _window_table
 from ..utils.profiling import host_sync, stage_range
-from .fft import _dft_mats
+from .bf16_decide import bf16_decide_rows
+from .chirp import base_downchirp_planar, gen_chirp_np, modulate_symbols_planar
+from .dechirp import dechirp
+from .fft import _argmax_bins_ops, dft_mag2_planar, dft_planar
+from .fused_demod import fused_demod
 from .windows import shifted_windows
 
 _TWO_PI = 2.0 * math.pi
@@ -68,130 +78,100 @@ def as_planes(xr, xi, device=None):
             torch.as_tensor(xi, dtype=torch.float32, device=dev))
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor, mxu_dtype=None) -> torch.Tensor:
-    """``a @ b`` in float32; with ``mxu_dtype`` (``torch.bfloat16``) both
-    operands are rounded to it first (round to nearest even) and the
-    products summed in float32 — JAX's ``preferred_element_type=f32``
-    dot. Products of two bf16 values are exact in float32, and TF32 is
-    off (package import), so only the order of the sums differs."""
-    if mxu_dtype is not None:
-        a = a.to(mxu_dtype).to(torch.float32)
-        b = b.to(mxu_dtype).to(torch.float32)
-    return a @ b
-
-
 # ---------------------------------------------------------------------------
-# DFT tables (NumPy copies of the JAX builders)
+# Helpers of the estimator and the demodulators
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
-def _small_dft_tables(n: int):
-    k = np.arange(n)
-    ang = 2 * np.pi * np.outer(k, k) / n
-    return (np.cos(ang).astype(np.float32),
-            (-np.sin(ang)).astype(np.float32))
+def _window_tensor(params: LoraParams, device):
+    """The Hann window (:func:`..utils.params._window_table`) as a device
+    tensor, or None. The JAX twin passes the NumPy table itself."""
+    return device_table(_window_table, params, device=device)
 
 
-@functools.lru_cache(maxsize=16)
-def _combined_dft_mat(n: int):
-    """[2n, 2n] float32 ``M`` with ``[xr | xi] @ M = [yr | yi]`` for the
-    Wr=cos / Wi=-sin DFT: ``M = [[Wr, Wi], [-Wi, Wr]]``."""
-    k = np.arange(n)
-    ang = 2 * np.pi * np.outer(k, k) / n
-    wr = np.cos(ang).astype(np.float32)
-    wi = (-np.sin(ang)).astype(np.float32)
-    return np.block([[wr, wi], [-wi, wr]])
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """std::round semantics (half away from zero) — torch.round is half-even.
+    JAX twin: ``lora_phy_tpu/models/modem.py:_round_half_away``."""
+    return torch.where(x >= 0, torch.floor(x + 0.5), torch.ceil(x - 0.5))
 
 
-@functools.lru_cache(maxsize=16)
-def _combined_fourstep_mats(n: int):
-    """Combined-form four-step constants: ``M1R`` [2n1, 2n1] right-multiplies
-    concatenated [br | bi] columns; twiddles in the [k2, i1] layout."""
-    w1, w2, tw, n1, n2 = _dft_mats(n)
-    m1r = np.block([[w1.real.T, w1.imag.T],
-                    [-w1.imag.T, w1.real.T]]).astype(np.float32)
-    twr = np.ascontiguousarray(tw.T.real).astype(np.float32)
-    twi = np.ascontiguousarray(tw.T.imag).astype(np.float32)
-    return m1r, n1, n2, twr, twi
+def _wrap_pi(d: torch.Tensor) -> torch.Tensor:
+    """The reference's while-loop phase wrap into [-pi, pi]
+    (src/phy/LoRaDemod.cpp:116-118); inputs are within +-2pi. JAX twin:
+    ``lora_phy_tpu/models/modem.py:_wrap_pi``."""
+    d = torch.where(d > math.pi, d - _TWO_PI, d)
+    return torch.where(d < -math.pi, d + _TWO_PI, d)
 
 
-def _fourstep_planar_mats(n: int):
-    """Split-form four-step planes for :func:`dft_planar`."""
-    w1, w2, tw, n1, n2 = _dft_mats(n)
-    return (w1.real.copy(), w1.imag.copy(), w2.real.copy(), w2.imag.copy(),
-            np.ascontiguousarray(tw.T.real), np.ascontiguousarray(tw.T.imag))
+def _osr_phase_view(x: torch.Tensor, n: int, osr: int) -> torch.Tensor:
+    """[..., S*step] -> [..., S, osr, N] where [..., s, t, i] = x[s*step + t + i*osr].
+    JAX twin: ``lora_phy_tpu/models/modem.py:_osr_phase_view``."""
+    s = x.shape[-1] // (n * osr)
+    return x[..., : s * n * osr].reshape(*x.shape[:-1], s, n, osr).swapaxes(-1, -2)
 
 
-def _scrambled_mats(n: int):
-    """Device-ready constants of :func:`_dft_mag2_scrambled`."""
-    m1r, n1, n2, twr_t, twi_t = _combined_fourstep_mats(n)
-    return (_combined_dft_mat(n2), m1r, twr_t.T.copy(), twi_t.T.copy(), n1, n2)
+def _tie_power_db(xr: torch.Tensor, xi: torch.Tensor, index: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The detector's peak power in dB (float32), recomputed for the
+    estimator's osr-phase pick: the DFT value at the float32 argmax bin
+    ``index`` taken in float64 from the float32 windows ``[..., N]``,
+    then rounded where the float32 detector rounds (``20*log10`` of the
+    fundamental, then minus ``20*log10(N)``).
+
+    The pick compares the osr phases' powers by exact equality
+    (src/phy/LoRaDemod.cpp:85-135). A clean tone has the same true power
+    at several phases; the JAX twin's float32 sums then tie, and another
+    summation order (torch's matmul) can break the tie by one ulp of
+    ``20*log10`` (3.8e-6 dB at N = 128) and pick another phase. In float64
+    the equal true powers round to the same float32, while powers that
+    differ by more than the float32 sums' error keep their order. The JAX
+    twin ``lora_phy_tpu/models/modem.py:_estimate`` compares the
+    detector's powers as they are."""
+    j = torch.arange(n, dtype=torch.int64, device=xr.device)
+    m = torch.remainder(index.to(torch.int64)[..., None] * j, n)
+    ang = m.to(torch.float64) * (_TWO_PI / n)
+    c, s = torch.cos(ang), -torch.sin(ang)
+    ar, ai = xr.to(torch.float64), xi.to(torch.float64)
+    yr = torch.sum(ar * c - ai * s, dim=-1)
+    yi = torch.sum(ar * s + ai * c, dim=-1)
+    v = (20.0 * torch.log10(torch.sqrt(yr * yr + yi * yi))).to(torch.float32)
+    return v - 20.0 * torch.log10(torch.tensor(float(n), device=xr.device))
 
 
-# ---------------------------------------------------------------------------
-# DFT, |DFT|^2, argmax, detection
-# ---------------------------------------------------------------------------
-
-def dft_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, mxu_dtype=None):
-    """Planar DFT over the last axis: four real matmuls (N <= 128) or the
-    four-step factorisation (N up to 4096). ``mxu_dtype=torch.bfloat16``
-    rounds every matmul operand to bf16 (f32 sums, :func:`_mm`)."""
-    if n <= 128:
-        wr, wi = device_table(_small_dft_tables, n, device=xr.device)
-        # one [rows, n] GEMM: a strided batch (the estimator's osr-phase
-        # view) would otherwise run as batched GEMVs on the GPU
-        shape = xr.shape
-        xr, xi = xr.reshape(-1, n), xi.reshape(-1, n)
-        return ((_mm(xr, wr, mxu_dtype) - _mm(xi, wi, mxu_dtype)).reshape(shape),
-                (_mm(xr, wi, mxu_dtype) + _mm(xi, wr, mxu_dtype)).reshape(shape))
-    with stage_range("planar.fourstep"):
-        w1r, w1i, w2r, w2i, twr, twi = device_table(_fourstep_planar_mats, n,
-                                                    device=xr.device)
-        n1, n2 = _dft_mats(n)[3:]
-        lead = xr.shape[:-1]
-        xr_m = xr.reshape(*lead, n2, n1)                    # [.., i2, i1]
-        xi_m = xi.reshape(*lead, n2, n1)
-        ar = _mm(w2r, xr_m, mxu_dtype) - _mm(w2i, xi_m, mxu_dtype)  # inner DFT: [.., k2, i1]
-        ai = _mm(w2r, xi_m, mxu_dtype) + _mm(w2i, xr_m, mxu_dtype)
-        br = ar * twr - ai * twi                            # twiddle
-        bi = ar * twi + ai * twr
-        cr = _mm(br, w1r.T, mxu_dtype) - _mm(bi, w1i.T, mxu_dtype)  # outer DFT: [.., k2, k1]
-        ci = _mm(br, w1i.T, mxu_dtype) + _mm(bi, w1r.T, mxu_dtype)
-        return (cr.swapaxes(-1, -2).reshape(*lead, n),
-                ci.swapaxes(-1, -2).reshape(*lead, n))
+def _pick_osr_phase(p: torch.Tensor, idx: torch.Tensor,
+                    tie_break_idx: bool) -> torch.Tensor:
+    """The winning osr phase per symbol from powers ``p`` and bins ``idx``
+    ``[..., S, osr]``: the greatest power, first phase on a tie, and with
+    ``tie_break_idx`` the lowest bin among the tied phases first
+    (src/phy/LoRaDemod.cpp:85-135). JAX twin: the pick inside
+    ``lora_phy_tpu/models/modem.py:_estimate``."""
+    maxp = p.amax(dim=-1, keepdim=True)
+    cand = p == maxp
+    if tie_break_idx:
+        idx_masked = torch.where(cand, idx, torch.iinfo(torch.int32).max)
+        min_idx = idx_masked.amin(dim=-1, keepdim=True)
+        cand = cand & (idx_masked == min_idx)
+    return torch.argmax(cand.to(torch.int32), dim=-1)   # first winning phase
 
 
-def _dft_mag2_scrambled(xr: torch.Tensor, xi: torch.Tensor, n: int,
-                        mxu_dtype=None) -> torch.Tensor:
-    """|DFT|² in the four-step's native [.., k2, k1] layout (bin
-    ``k = k1*n2 + k2``), via two combined matmuls and no output reorder."""
-    m2, m1r, twr, twi, n1, n2 = device_table(_scrambled_mats, n, device=xr.device)
-    lead = xr.shape[:-1]
-    xst = torch.cat(
-        [xr.reshape(*lead, n2, n1).swapaxes(-1, -2),
-         xi.reshape(*lead, n2, n1).swapaxes(-1, -2)], dim=-1
-    )                                                   # [.., n1, 2n2]
-    a = _mm(xst, m2, mxu_dtype)
-    ar, ai = a[..., :n2], a[..., n2:]                   # [.., n1, n2]
-    bs = torch.cat(
-        [(ar * twr - ai * twi).swapaxes(-1, -2),
-         (ar * twi + ai * twr).swapaxes(-1, -2)], dim=-1
-    )                                                   # [.., n2, 2n1]
-    c = _mm(bs, m1r, mxu_dtype)                         # [cr | ci]
-    return c[..., :n1] * c[..., :n1] + c[..., n1:] * c[..., n1:]
+def _derotation_vector(rate: torch.Tensor, n: int):
+    """Per-sample CFO derotation ``exp(j*rate*i)`` over [..., N], broadcast
+    over the symbol axis by the caller, as its (cos, sin) planes (the JAX
+    twin ``lora_phy_tpu/models/modem.py:_derotation_vector`` returns the
+    complex vector; the planar pipeline takes the planes and so makes no
+    complex copy). The reference's per-symbol constant phase ``rate*(s*N +
+    t_off/osr)`` (src/phy/LoRaDemod.cpp:151-152) leaves every magnitude
+    unchanged and is dropped, as in the JAX twin."""
+    phi = rate[..., None] * torch.arange(n, dtype=torch.float32, device=rate.device)
+    return torch.cos(phi), torch.sin(phi)
 
 
-def dft_mag2_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
-                    mxu_dtype=None) -> torch.Tensor:
-    """|DFT|² over the last axis in natural bin order."""
-    if n <= 128:
-        m = device_table(_combined_dft_mat, n, device=xr.device)
-        y = _mm(torch.cat([xr, xi], dim=-1), m, mxu_dtype)
-        return y[..., :n] * y[..., :n] + y[..., n:] * y[..., n:]
-    with stage_range("planar.fourstep"):
-        m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
-        lead = m.shape[:-2]
-        return m.swapaxes(-1, -2).reshape(*lead, n)
+def _sync_from_symbols(idx0: torch.Tensor, idx1: torch.Tensor, sf: int) -> torch.Tensor:
+    """Recover the two-nibble sync byte (src/phy/LoRaDemod.cpp:177-192).
+    JAX twin: ``lora_phy_tpu/models/modem.py:_sync_from_symbols``."""
+    shift = (sf - 4) if sf > 4 else 0
+    hi = (idx0 >> shift) & 0x0F
+    lo = (idx1 >> shift) & 0x0F
+    return ((hi << 4) | lo).to(torch.uint8)
 
 
 def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
@@ -203,8 +183,6 @@ def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
     ``mxu_dtype=torch.bfloat16`` goes through :mod:`.bf16_decide`: the
     kernel on a CUDA tensor, its plain version (torch ops) on the CPU."""
     if mxu_dtype == torch.bfloat16:
-        from .bf16_decide import bf16_decide_rows
-
         lead = xr.shape[:-1]
         out = bf16_decide_rows(xr.reshape(-1, n).contiguous(),
                                xi.reshape(-1, n).contiguous(), n, with_peak=with_peak)
@@ -212,37 +190,6 @@ def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
             return out[0].reshape(lead), out[1].reshape(lead)
         return out.reshape(lead)
     return _argmax_bins_ops(xr, xi, n, mxu_dtype, with_peak)
-
-
-def _argmax_bins_ops(xr: torch.Tensor, xi: torch.Tensor, n: int, mxu_dtype=None,
-                     with_peak: bool = False):
-    """:func:`argmax_bins_planar` in torch ops, on any device."""
-    if n <= 128:
-        mag2 = dft_mag2_planar(xr, xi, n, mxu_dtype)
-        bins = torch.argmax(mag2, dim=-1).to(torch.int32)
-        if with_peak:
-            return bins, mag2.amax(dim=-1)
-        return bins
-    with stage_range("planar.fourstep"):
-        m = _dft_mag2_scrambled(xr, xi, n, mxu_dtype)
-        lead = m.shape[:-2]
-        n2, n1 = m.shape[-2], m.shape[-1]
-        bins, peak = _argmax_natural(m.reshape(*lead, n2 * n1), n1, n2)
-    if with_peak:
-        return bins, peak
-    return bins
-
-
-def _argmax_natural(flat: torch.Tensor, n1: int, n2: int):
-    """First-max argmax over a flattened scrambled [k2, k1] spectrum,
-    returning (lowest natural tied bin, peak value). The JAX twin carries
-    the natural index through a variadic reduce; here the spectrum is
-    reordered to natural order (bin ``k1*n2 + k2``) and ``torch.argmax``,
-    which returns the first maximum, picks the same bin."""
-    lead = flat.shape[:-1]
-    nat = flat.reshape(*lead, n2, n1).swapaxes(-1, -2).reshape(*lead, n1 * n2)
-    peak, bins = torch.max(nat, dim=-1)
-    return bins.to(torch.int32), peak
 
 
 def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
@@ -280,11 +227,11 @@ def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
 
 def _estimate_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, osr: int,
                      window, tie_break_idx: bool = True):
-    """The 2-symbol CFO / timing estimate (modem._estimate's planes).
+    """The 2-symbol CFO / timing estimate on (re, im) planes.
     ``tie_break_idx=True`` applies ``lora_demodulate``'s lowest-index
     tie-break across osr phases (src/phy/LoRaDemod.cpp:85-135), False
     ``estimate_offsets``'s plain scan (src/phy/phy.cpp:113). At osr > 1
-    the phases' powers are compared as :func:`..models.modem._tie_power_db`
+    the phases' powers are compared as :func:`_tie_power_db`
     recomputes them, so a true tie stays a tie."""
     vr, vi = _osr_phase_view(xr, n, osr), _osr_phase_view(xi, n, osr)
     s = vr.shape[-3]
@@ -334,8 +281,6 @@ def _preamble_phase_step(sf: int, osr: int, scale: float) -> float:
     (pi at osr=1/scale=1, pi/2 at osr=2, 0 at scale=2, ...), measured once
     per configuration from the float64 host oracle — a copy of the JAX
     module's NumPy builder."""
-    from .chirp import gen_chirp_np
-
     n = 1 << sf
     step = n * osr
     up, _ = gen_chirp_np(n, osr, 2 * step, 0.0, down=False, ampl=1.0,
@@ -510,11 +455,8 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
         if fused:
             # the kernel multiplies by ``scale`` at load: the same floats as
             # the JAX path's ``yr * scale``, without materialising it
-            from .fused_demod import fused_demod
             syms = fused_demod(yr, yi, rate, t_off, params, scale)
         elif mxu_dtype is not None:
-            from .bf16_decide import bf16_decide_rows
-
             n = params.n
             cr, si = _rotation_planes(rate, scale, params)
             rows = yr.shape[:-1]
@@ -551,7 +493,7 @@ def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
 
     ``dec_phase`` picks the decimation phase of the symbol windows: pass
     ``osr-1`` when receiving the reference's default TX fold with an
-    injected time offset of 0 (see modem._shifted_symbol_gather). On a
+    injected time offset of 0 (see :func:`.windows.shifted_windows`). On a
     CUDA device the host syncs are :func:`demodulate_planar`'s two:
     :func:`detect_planar`'s copy of ``N`` in the estimate (none with
     ``known_offsets``) and the window gather's one ``t_off == 0`` read for
@@ -714,8 +656,6 @@ def modulate_planar(symbols: torch.Tensor, params: LoraParams,
     """Symbols -> phase-continuous chirped (re, im) float32 planes with the
     2-symbol sync preamble (src/phy/LoRaMod.cpp:8-43).
     [..., S] -> ((re, im) [..., (S+2)*step])."""
-    from .chirp import modulate_symbols_planar
-
     return modulate_symbols_planar(
         symbols, params.sf, params.osr, params.scale, amplitude,
         params.sync_word, params.continuous_chirp,
@@ -728,9 +668,6 @@ def dechirp_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams):
     on a CUDA tensor one pass of the hand kernel ``csrc/dechirp.cu``, on a
     CPU tensor its eager twin (:mod:`.dechirp`), bit-equal. Runs in the
     range ``planar.dechirp`` while a profiler runs."""
-    from .chirp import base_downchirp_planar
-    from .dechirp import dechirp
-
     with stage_range("planar.dechirp"):
         dr, di = device_table(base_downchirp_planar, params.sf, params.scale,
                               params.osr, device=xr.device)

@@ -19,13 +19,16 @@ contiguous planes; the inputs are never written.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from ..utils.profiling import host_sync, launch_range
+from .. import _build
+from .._build import I64, PTR
+from ..utils.profiling import host_sync
 
+# the C entry point of csrc/windows.cu
+ENTRY = ("lora_windows", (PTR, I64, I64) * 2 + (PTR,) * 3 + (I64,) * 5 + (PTR,))
 # Launches of the CUDA kernel in this process: one per call of
 # shifted_windows on CUDA tensors with a nonzero offset.
 LAUNCHES = 0
@@ -125,12 +128,6 @@ def shifted_windows_kernel(xr: torch.Tensor, xi: torch.Tensor, total_symbols: in
     :func:`shifted_windows_reference` gives them."""
     global LAUNCHES
     _check_planes(xr, xi)
-    if xr.device.type != "cuda":
-        raise ValueError(f"no windows kernel for device {xr.device}")
-
-    from .._build import load_library
-
-    lib = load_library()
     step = n * osr
     length = total_symbols * step
     lead = xr.shape[:-1]
@@ -141,16 +138,10 @@ def shifted_windows_kernel(xr: torch.Tensor, xi: torch.Tensor, total_symbols: in
                               lead).reshape(rows).contiguous()
     yr = torch.empty((*lead, total_symbols, n), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    i64 = ctypes.c_longlong
-    with torch.cuda.device(xr.device), launch_range("windows.launch"):
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = lib.lora_windows(
-            ar.data_ptr(), i64(ar.stride(0)), i64(ar.stride(1)),
-            ai.data_ptr(), i64(ai.stride(0)), i64(ai.stride(1)),
-            toff.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            i64(rows), i64(total_symbols), i64(n), i64(osr), i64(dec_phase), stream)
-    if rc != 0:
-        msg = lib.lora_cuda_error_string(rc).decode()
-        raise RuntimeError(f"windows kernel launch failed: CUDA error {rc} ({msg})")
+    _build.launch(ENTRY, xr.device, "windows.launch",
+                  ar.data_ptr(), ar.stride(0), ar.stride(1),
+                  ai.data_ptr(), ai.stride(0), ai.stride(1),
+                  toff.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                  rows, total_symbols, n, osr, dec_phase)
     LAUNCHES += 1
     return yr, yi

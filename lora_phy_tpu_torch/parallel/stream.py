@@ -38,12 +38,11 @@ import numpy as np
 import torch
 
 from .. import LoraParams, device_of
-from ..models.modem import _round_half_away, _sync_from_symbols, _window_tensor
-from ..models.stream import frame_overhead_samples
-from ..models.sync import BlockFrames, receive_block_planar
+from ..models.sync import BlockFrames, frame_overhead_samples, receive_block_planar
 from ..ops.planar import (_TWO_PI_F32, _estimate_planar, _max_abs,
-                          _rotated_windows_planar, argmax_bins_planar,
-                          split_complex)
+                          _rotated_windows_planar, _round_half_away,
+                          _sync_from_symbols, _window_tensor,
+                          argmax_bins_planar, split_complex)
 from . import mesh as meshlib
 from .mesh import TIME_AXIS, Mesh, pmax, ppermute, psum_first
 

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
+
+import numpy as np
 
 
 class Bandwidth(enum.IntEnum):
@@ -93,6 +96,19 @@ class LoraMetrics:
     crc_ok: bool = False
     cfo: float = 0.0
     time_offset: float = 0.0
+
+
+def _window_table(params: LoraParams) -> np.ndarray | None:
+    """The [N] float32 Hann window of ``params`` (src/phy/LoRaDemod.cpp:17-22),
+    or None without a window. JAX twin:
+    ``lora_phy_tpu/models/modem.py:_window_table``."""
+    if params.window == Window.NONE:
+        return None
+    n = params.n
+    i = np.arange(n, dtype=np.float32)
+    return (0.5 - 0.5 * np.cos(2.0 * np.float32(math.pi) * i / np.float32(n - 1))).astype(
+        np.float32
+    )
 
 
 def from_fields(obj) -> LoraParams:

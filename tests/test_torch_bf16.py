@@ -287,12 +287,12 @@ def test_bf16_tie_break_lowest_natural_bin(sf):
     (x = delta(0) - delta(N/2): |X_k|^2 = 4 for odd k), which must give
     bin 1 through the plain version, as through JAX's."""
     n = 1 << sf
-    m2, m1r, twr, twi, n1, n2 = tplanar._scrambled_mats(n)
+    m2, m1r, twr, twi, n1, n2 = tfft._scrambled_mats(n)
     flat = np.zeros((3, n), np.float32)
     flat[:, 1] = 5.0       # scrambled-first, natural bin n2
     flat[:, n1] = 5.0      # scrambled-later, natural bin 1
     flat[0, 0] = 7.0
-    bins, peak = tplanar._argmax_natural(tt(flat), n1, n2)
+    bins, peak = tfft._argmax_natural(tt(flat), n1, n2)
     np.testing.assert_array_equal(nn(bins), [0, 1, 1])
     np.testing.assert_array_equal(nn(peak), [7.0, 5.0, 5.0])
 
@@ -375,13 +375,13 @@ def test_kernel_tables_are_the_plain_versions_bits():
     four-step's layouts: test_fourstep_tables_are_the_plain_versions_bits.)"""
     for n in (4, 8):
         wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
-        m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
+        m = torch.from_numpy(tfft._combined_dft_mat(n)).to(BF16)
         assert wr.shape == (max(n, 8), max(n, 16)) and wr.dtype == BF16
         torch.testing.assert_close(wr[:n, :n], m[:n, :n].T, rtol=0, atol=0)
         torch.testing.assert_close(wi[:n, :n], m[:n, n:].T, rtol=0, atol=0)
         assert not wr[n:].any() and not wr[:, n:].any()
         assert wbr is None and twr is None
-    m2, m1r, ftwr, ftwi, n1, n2 = tplanar._scrambled_mats(4096)
+    m2, m1r, ftwr, ftwi, n1, n2 = tfft._scrambled_mats(4096)
     wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(4096, torch.device("cpu"))
 
     def table(t, k):  # the kernel's flat table back to [bin][k]
@@ -407,7 +407,7 @@ def test_fourstep_tables_are_the_plain_versions_bits(n):
     in the fragment order fourstep_untwiddles inverts, with every copy
     equal; element (w, j, lane, c) is tile row 16 w + g + 8 (c // 2), bin
     8 j + 2 t + c % 2."""
-    m2, m1r, ftwr, ftwi, n1, n2 = tplanar._scrambled_mats(n)
+    m2, m1r, ftwr, ftwi, n1, n2 = tfft._scrambled_mats(n)
     assert (n1, n2) == tfft._split(n) and 64 % n1 == 0
     w1r, w1i, w2r, w2i, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
     assert w1r.shape == (n2 * n2,) and w2r.shape == (n1 * n1,) and w1r.dtype == BF16
@@ -437,7 +437,7 @@ def test_wgmma_tables_are_the_plain_versions_bits(n):
     layout's core matrices sit where the kernel's descriptors look."""
     wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
     assert wr.shape == (n * n,) and wr.dtype == BF16 and wbr is None and twr is None
-    m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
+    m = torch.from_numpy(tfft._combined_dft_mat(n)).to(BF16)
     for got, want in ((wr, m[:n, :n].T), (wi, m[:n, n:].T)):
         bits = nn(got.view(torch.int16))
         back = tbf16.wgmma_unlayout(bits, n, n)
@@ -463,7 +463,7 @@ def test_n16_tables_are_the_plain_versions_bits():
     n = tbf16.N16_N
     wr, wi, wbr, wbi, twr, twi = tbf16._kernel_tables(n, torch.device("cpu"))
     assert wr.shape == (n, n) and wr.dtype == BF16 and wbr is None and twr is None
-    m = torch.from_numpy(tplanar._combined_dft_mat(n)).to(BF16)
+    m = torch.from_numpy(tfft._combined_dft_mat(n)).to(BF16)
     cols = tbf16._wgmma_columns(n)
     assert sorted(cols.tolist()) == list(range(n))
     for got, want in ((wr, m[:n, :n].T), (wi, m[:n, n:].T)):

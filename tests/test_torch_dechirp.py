@@ -4,7 +4,7 @@ through ``ops/dechirp.py``.
 On the CPU the wrapper runs its plain twin (the four products and two
 sums as eager ops), which must equal the explicit formula over the tiled
 downchirp bit for bit and launch nothing; the C interface of
-``csrc/dechirp.cu`` is checked against ``_build``'s declaration. On the
+``csrc/dechirp.cu`` is checked against the wrapper's ``ENTRY``. On the
 card (``gpu``) the hand kernel must equal the twin bit for bit on the
 same inputs, on an offset view (its scalar path) too, launch once a call
 and run inside the ``planar.dechirp`` range.
@@ -91,7 +91,7 @@ def test_kernel_source_is_built_and_declared():
     src = next(s for s in _build.SOURCES if s.name == "dechirp.cu")
     assert src.is_file()
     fake = types.SimpleNamespace(lora_dechirp=lambda *a: 0)
-    _build.declare(fake)
+    _build.declare(fake, tdechirp.ENTRY)
     argtypes = fake.lora_dechirp.argtypes
     params = c_parameters(src.read_text(), "lora_dechirp")
     assert len(argtypes) == len(params) == 14

@@ -111,14 +111,14 @@ def test_estimate_offsets_planar_golden(path):
                          ids=lambda p: p.stem)
 def test_tie_power_holds_jax_osr_phase_pick(path):
     """At osr > 1 the phase pick compares the powers of
-    modem._tie_power_db: the same winning phases as JAX's float32 powers
+    planar._tie_power_db: the same winning phases as JAX's float32 powers
     on every golden cell, and where JAX's powers tie they tie here."""
     _, p, dr, di = _golden_dechirped(path)
     n, step = p.n, p.step
     view = lambda a: a[: 2 * step].reshape(2, n, p.osr).swapaxes(-1, -2)
     jdet = jplanar.detect_planar(view(dr), view(di), n)
     jp = nn(jdet.power)
-    tp = nn(tmodem._tie_power_db(tt(view(dr)), tt(view(di)), tt(nn(jdet.index)), n))
+    tp = nn(tplanar._tie_power_db(tt(view(dr)), tt(view(di)), tt(nn(jdet.index)), n))
     np.testing.assert_array_equal(tp == tp.max(-1, keepdims=True),
                                   jp == jp.max(-1, keepdims=True))
     np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-4)

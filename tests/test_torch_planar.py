@@ -16,7 +16,7 @@ outputs carry stated tolerances:
   exact float equality (``p == maxp``, src/phy/LoRaDemod.cpp:85-135). A
   clean tone ties exactly across phases in XLA's sums; the port compares
   the powers recomputed in float64 at the peak bin
-  (``modem._tie_power_db``), so the tie holds and cfo / time_offset are
+  (``planar._tie_power_db``), so the tie holds and cfo / time_offset are
   JAX's on every golden cell (``sf7_bw250000_osr2_win0`` included).
 """
 
@@ -29,7 +29,9 @@ from lora_phy_tpu.models import modem as jmodem
 from lora_phy_tpu.ops import planar as jplanar
 from lora_phy_tpu.utils.params import LoraParams, Window
 from lora_phy_tpu_torch.models import modem as tmodem
+from lora_phy_tpu_torch.ops import fft as tfft
 from lora_phy_tpu_torch.ops import planar as tplanar
+from lora_phy_tpu_torch.ops import windows as twindows
 
 DECHIRP_ATOL = 1.3e-7
 CFO_ATOL = 1e-6
@@ -210,13 +212,13 @@ def test_shifted_symbol_gather_vs_jax(osr, dec_phase):
     x = rng.randn(4, s * n * osr + 7).astype(np.float32)
     for t_off in (np.array([0, 37, -45, 3], np.int32), np.zeros(4, np.int32)):
         ref = jmodem._shifted_symbol_gather(x, s, n, osr, t_off, dec_phase)
-        got = tmodem._shifted_symbol_gather(tt(x), s, n, osr, tt(t_off), dec_phase)
+        got = twindows.shifted_plane_reference(tt(x), s, n, osr, tt(t_off), dec_phase)
         np.testing.assert_array_equal(nn(got), nn(ref))
 
 
 def test_round_half_away_vs_jax():
     x = np.array([-2.5, -1.5, -0.5, -0.49, 0.0, 0.5, 1.5, 2.5, 3.49], np.float32)
-    np.testing.assert_array_equal(nn(tmodem._round_half_away(tt(x))),
+    np.testing.assert_array_equal(nn(tplanar._round_half_away(tt(x))),
                                   nn(jmodem._round_half_away(x)))
 
 
@@ -263,7 +265,7 @@ def test_argmax_natural_tie_vs_jax():
     assert pos(65) < pos(30)
     flat[:, [pos(30), pos(65)]] = 7.0
     flat[1, pos(100)] = 9.0
-    got_b, got_p = tplanar._argmax_natural(tt(flat), n1, n2)
+    got_b, got_p = tfft._argmax_natural(tt(flat), n1, n2)
     ref_b, ref_p = jplanar._argmax_natural(flat, n1, n2)
     np.testing.assert_array_equal(nn(got_b), nn(ref_b))
     np.testing.assert_array_equal(nn(got_p), nn(ref_p))

@@ -30,6 +30,7 @@ from lora_phy_tpu_torch.ops import coding as tcoding
 from lora_phy_tpu_torch.ops import fft as tfft
 from lora_phy_tpu_torch.ops import fused_demod as tfused
 from lora_phy_tpu_torch.ops import planar as tplanar
+from lora_phy_tpu_torch.utils.params import _window_table as twindow_table
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -101,17 +102,17 @@ _TABLES = {
                       lambda: jchirp.base_downchirp_planar(7, 1.0, 1)),
     "fft_dft_mats_4096": (lambda: tfft._dft_mats(4096)[:3],
                           lambda: jfft._dft_mats(4096)[:3]),
-    "small_dft_128": (lambda: tplanar._small_dft_tables(128),
+    "small_dft_128": (lambda: tfft._small_dft_tables(128),
                       lambda: jplanar._small_dft_tables(128)),
-    "combined_dft_128": (lambda: (tplanar._combined_dft_mat(128),),
+    "combined_dft_128": (lambda: (tfft._combined_dft_mat(128),),
                          lambda: (jplanar._combined_dft_mat(128),)),
-    "combined_fourstep_1024": (lambda: tplanar._combined_fourstep_mats(1024),
+    "combined_fourstep_1024": (lambda: tfft._combined_fourstep_mats(1024),
                                lambda: jplanar._combined_fourstep_mats(1024)),
     "fused_dft_hann_128": (
-        lambda: tfused._dft_tables(128, tuple(tmodem._window_table(tparams(_HANN7)))),
+        lambda: tfused._dft_tables(128, tuple(twindow_table(tparams(_HANN7)))),
         lambda: jfused._dft_tables(128, tuple(jmodem._window_table(_HANN7)))),
-    "hann_window": (lambda: (tmodem._window_table(tparams(_HANN7)),
-                             tmodem._window_table(tparams(_HANN12))),
+    "hann_window": (lambda: (twindow_table(tparams(_HANN7)),
+                             twindow_table(tparams(_HANN12))),
                     lambda: (jmodem._window_table(_HANN7), jmodem._window_table(_HANN12))),
 }
 
@@ -131,10 +132,10 @@ def test_constant_tables_bit_equal(name):
 
 
 def test_device_table_uploads_the_numpy_table():
-    wr, wi = lt.device_table(tplanar._small_dft_tables, 64, device="cpu")
+    wr, wi = lt.device_table(tfft._small_dft_tables, 64, device="cpu")
     assert isinstance(wr, torch.Tensor) and wr.dtype == torch.float32
     np.testing.assert_array_equal(nn(wr), jplanar._small_dft_tables(64)[0])
-    assert lt.device_table(tplanar._small_dft_tables, 64, device="cpu")[0] is wr
+    assert lt.device_table(tfft._small_dft_tables, 64, device="cpu")[0] is wr
 
 
 def test_device_of_never_guesses(monkeypatch):

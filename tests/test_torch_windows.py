@@ -9,8 +9,8 @@ bit on both planes: at osr 1 and 2 with every decimation phase, offsets of
 tail past the last whole symbol, and offset or strided views. The wrapper
 routes a CPU tensor to the twin, returns views where every offset is zero
 and refuses a plane that is not float32 or not the other's shape; the C
-interface of ``csrc/windows.cu`` is checked against ``_build``'s
-declaration. On the card (``gpu``) the hand kernel must equal the twin bit
+interface of ``csrc/windows.cu`` is checked against the wrapper's
+``ENTRY``. On the card (``gpu``) the hand kernel must equal the twin bit
 for bit on the same grid and at a bulk-like shape, launch once a shifted
 call and never an aligned one, and run inside the ``planar.windows``
 range.
@@ -143,7 +143,7 @@ def test_kernel_source_is_built_and_declared():
     src = next(s for s in _build.SOURCES if s.name == "windows.cu")
     assert src.is_file()
     fake = types.SimpleNamespace(lora_windows=lambda *a: 0)
-    _build.declare(fake)
+    _build.declare(fake, windows.ENTRY)
     argtypes = fake.lora_windows.argtypes
     params = c_parameters(src.read_text(), "lora_windows")
     assert len(argtypes) == len(params) == 15

@@ -81,7 +81,8 @@ def build_variant(name: str, edits) -> ctypes.CDLL:
     out.mkdir(parents=True, exist_ok=True)
     cu = out / f"{name}.cu"
     cu.write_text(variant_source(edits))
-    return _build.declare(ctypes.CDLL(str(_build.compile_library([cu], out / f"{name}.so"))))
+    return _build.declare(ctypes.CDLL(str(_build.compile_library([cu], out / f"{name}.so"))),
+                          fused_demod.ENTRY)
 
 
 def events_ms(fn, launches=10) -> float:

@@ -57,6 +57,7 @@ import chip_smoke  # noqa: E402
 from lora_phy_tpu_torch import LoraParams, Window, _build, device_table  # noqa: E402
 from lora_phy_tpu_torch.ops import bf16_decide as bf16  # noqa: E402
 from lora_phy_tpu_torch.ops import fused_demod as fused  # noqa: E402
+from lora_phy_tpu_torch.utils.params import _window_table  # noqa: E402
 
 OUT_DIR = _build.BUILD_DIR / "resources"
 FUSED_N = (4, 8, 16, 32, 64, 128)
@@ -144,7 +145,8 @@ def sass_counts(obj: pathlib.Path):
 
 
 def build_library(sources, out: pathlib.Path) -> ctypes.CDLL:
-    return _build.declare(ctypes.CDLL(str(_build.compile_library(sources, out))))
+    return _build.declare(ctypes.CDLL(str(_build.compile_library(sources, out))),
+                          fused.ENTRY, bf16.ENTRY)
 
 
 def launch_all(lib, dev):
@@ -222,7 +224,7 @@ def compare(card, libs, dev):
     for n in FUSED_N:
         xr, xi, start, rate, scale, _ = chip_smoke.small_n_fused_rows(gen, n, dev)
         rows = xr.shape[0]
-        window = device_table(fused._window_table,
+        window = device_table(_window_table,
                               LoraParams(sf=n.bit_length() - 1, window=Window.HANN), device=dev)
         tw = device_table(fused._twiddles, n, device=dev)
         out = torch.empty(rows, dtype=torch.int32, device=dev)
