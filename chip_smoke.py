@@ -211,7 +211,15 @@ Imports no JAX. Phases, one line each (or a few):
    bit-equal to its eager twin's (pad, int64 index, gather, select), both
    times, its bytes bound and share, the memory a call takes; its launches
    and zero-offset views on each path (1 and 0 a bulk call, no launch on
-   the block receiver's paths);
+   the block receiver's paths); (f) the gateway scan kernel (csrc/scan.cu)
+   at both gateway cells' shapes, the benchmark's traffic (2048 x 65,536
+   samples at SF7, 128 x 2^20 at SF12): its bins against its twin's
+   (scan_peaks_reference: four dechirp planes, two stacks, the planar DFT)
+   equal outside near-ties, the near-ties counted, its peaks within a
+   relative 2e-5, both times, the benchmark's frozen count's bound
+   (phybench/metrics/scan_bound.py) and the share, the memory a call takes;
+   the scan's launches and spectra calls on each path (one launch a scan at
+   pre_acc 1 on the card, none on the bulk path);
 21. the repo-level twins of the files that drive the JAX package: (a)
    torch_graft_entry.entry's forward on the card, its decisions equal to
    the same forward on the CPU, the payloads back, sync 0x12, its CUDA-event
@@ -258,6 +266,7 @@ from lora_phy_tpu_torch.ops.chirp import base_downchirp_planar
 from lora_phy_tpu_torch.ops import bf16_decide as bf16
 from lora_phy_tpu_torch.ops import dechirp as dechirp_k
 from lora_phy_tpu_torch.ops import fused_demod as fused
+from lora_phy_tpu_torch.ops import scan as scan_k
 from lora_phy_tpu_torch.ops import windows as windows_k
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # HBM bandwidth; one definition, in the port's profiling module
@@ -338,11 +347,13 @@ BF16_SF5_FRAMES = 32768
 BF16_SF4_FRAMES, BF16_SF6_FRAMES = 65536, 19648
 
 
-# the bf16 decision kernel's, fused_demod's, the dechirp kernel's and the
-# windows kernel's launches on each path, and the window gather's calls
-# that took the zero-offset view, read by read_launches
+# the bf16 decision kernel's, fused_demod's, the dechirp kernel's, the
+# windows kernel's and the scan kernel's launches on each path, the window
+# gather's calls that took the zero-offset view and the scans that kept
+# whole spectra (pre_acc > 1), read by read_launches
 BF16_BY_PATH, FUSED_BY_PATH, DECHIRP_BY_PATH = {}, {}, {}
 WINDOWS_BY_PATH, ALIGNED_BY_PATH = {}, {}
+SCAN_BY_PATH, SPECTRA_BY_PATH = {}, {}
 
 
 def reset_launches():
@@ -351,18 +362,22 @@ def reset_launches():
     bf16.LAUNCHES = 0
     dechirp_k.LAUNCHES = 0
     windows_k.LAUNCHES = windows_k.ALIGNED = 0
+    scan_k.LAUNCHES = scan_k.SPECTRA = 0
 
 
 def read_launches(path):
     """Read the counters just after ``path``: each kernel's launches are
     added to its BF16_BY_PATH / FUSED_BY_PATH / DECHIRP_BY_PATH /
-    WINDOWS_BY_PATH entry, the aligned window gathers to ALIGNED_BY_PATH;
-    fused_demod's are returned."""
+    WINDOWS_BY_PATH / SCAN_BY_PATH entry, the aligned window gathers to
+    ALIGNED_BY_PATH, the spectra scans to SPECTRA_BY_PATH; fused_demod's
+    are returned."""
     BF16_BY_PATH[path] = BF16_BY_PATH.get(path, 0) + bf16.LAUNCHES
     FUSED_BY_PATH[path] = FUSED_BY_PATH.get(path, 0) + fused.LAUNCHES
     DECHIRP_BY_PATH[path] = DECHIRP_BY_PATH.get(path, 0) + dechirp_k.LAUNCHES
     WINDOWS_BY_PATH[path] = WINDOWS_BY_PATH.get(path, 0) + windows_k.LAUNCHES
     ALIGNED_BY_PATH[path] = ALIGNED_BY_PATH.get(path, 0) + windows_k.ALIGNED
+    SCAN_BY_PATH[path] = SCAN_BY_PATH.get(path, 0) + scan_k.LAUNCHES
+    SPECTRA_BY_PATH[path] = SPECTRA_BY_PATH.get(path, 0) + scan_k.SPECTRA
     return fused.LAUNCHES
 
 
@@ -603,6 +618,8 @@ def main():
     torch.cuda.empty_cache()
     record20e = phase20e_windows(dev, card)
     torch.cuda.empty_cache()
+    record20f = phase20f_scan(dev, card)
+    torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -622,7 +639,10 @@ def main():
     record20["launches_by_path"] = dict(DECHIRP_BY_PATH)
     record20e["launches_by_path"] = dict(WINDOWS_BY_PATH)
     record20e["aligned_by_path"] = dict(ALIGNED_BY_PATH)
-    print(json.dumps({"kernels": [record, record19, record20, record20e]}), flush=True)
+    record20f["launches_by_path"] = dict(SCAN_BY_PATH)
+    record20f["spectra_by_path"] = dict(SPECTRA_BY_PATH)
+    print(json.dumps({"kernels": [record, record19, record20, record20e, record20f]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
@@ -3204,6 +3224,12 @@ def phase20b_stage_profile(dev, card):
     read_launches("block_profile")
     for line in prof.lines(f"phase 20 (b): {card}: block receiver, {total / 1e6:.1f} M samples"):
         print(line, flush=True)
+    print(f"phase 20 (b): scan kernel launches {SCAN_BY_PATH['block_profile']} in "
+          f"{tool.CALLS + 1} receiver calls", flush=True)
+    check(SCAN_BY_PATH["block_profile"] == tool.CALLS + 1 and
+          SPECTRA_BY_PATH["block_profile"] == 0,
+          f"phase 20 (b): {SCAN_BY_PATH['block_profile']} scan launches, "
+          f"{SPECTRA_BY_PATH['block_profile']} spectra scans in {tool.CALLS + 1} receiver calls")
     staged = sum(v[0] for v in prof.stages.values())
     check(prof.busy_ms > 0, "phase 20 (b): the profiler recorded no device time")
     check(abs(staged - prof.busy_ms) <= 0.1 * prof.busy_ms,
@@ -3301,7 +3327,9 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
           f"them patched to no-ops (medians of {len(on)} x {calls} calls in turns; "
           f"{t_on / t_off - 1:+.4f}); {syncs} host syncs a call", flush=True)
     print(f"phase 20 (b): bulk call's kernel launches: dechirp {DECHIRP_BY_PATH['bulk']}, "
-          f"fused_demod {FUSED_BY_PATH['bulk']}, bf16_decide {BF16_BY_PATH['bulk']}", flush=True)
+          f"fused_demod {FUSED_BY_PATH['bulk']}, bf16_decide {BF16_BY_PATH['bulk']}, scan "
+          f"{SCAN_BY_PATH['bulk']}", flush=True)
+    check(SCAN_BY_PATH["bulk"] == 0, "phase 20 (b) bulk: the bulk call launched the scan kernel")
     check(syncs == 2, f"phase 20 (b) bulk: {syncs} host syncs a call, want 2")
     check(t_on <= 1.02 * t_off, f"phase 20 (b) bulk: the markers cost {t_on - t_off:.3f} ms, "
           f"over 2 % of the {t_off:.3f} ms call")
@@ -3427,11 +3455,100 @@ def phase20e_windows(dev, card):
     for path in ("block", "block_profile", "barrel_osr2", "barrel_hann"):
         check(WINDOWS_BY_PATH.get(path, 0) == 0,
               f"phase 20 (e): the gateway path {path} launched the windows kernel")
+    print(f"phase 20 (e): scan kernel launches by path: {SCAN_BY_PATH}; spectra scans "
+          f"(pre_acc > 1) by path: {SPECTRA_BY_PATH}", flush=True)
+    check(SCAN_BY_PATH.get("block") == 1 and SPECTRA_BY_PATH.get("block") == 0,
+          "phase 20 (e): the block receiver does not launch the scan kernel once")
+    check(SCAN_BY_PATH.get("robust") == 0 and SPECTRA_BY_PATH.get("robust") == 1,
+          "phase 20 (e): pre_acc=3 does not keep the spectra path once")
     return {"name": "windows", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/windows.cu",
             "replaces": None, "launches": 1, "max_abs_err": 0,
             "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": "bytes",
             # the eager twin is the only PyTorch yardstick; no library call
             "library_ms": None}
+
+
+# the gateway cells' blocks (phybench gw-dr5-pool2048, gw-dr0-pool128):
+# (configuration, traffic mix, channels, seed of the pool item)
+SCAN_CELLS = (("gw-eu868-dr5", "gw-pool2048", 2048, 2 ** 33 + 41),
+              ("gw-eu868-dr0", "gw-pool128-dr0", 128, 2 ** 33 + 43))
+
+
+def phase20f_scan(dev, card):
+    """The scan kernel at both gateway cells' shapes on the benchmark's
+    traffic (one pool item of each cell's generator): bins equal to the
+    twin's (``scan_peaks_reference``) outside near-ties, the near-ties
+    and any bin that differs there counted, peaks within a relative 2e-5;
+    the kernel's and the twin's times, the bound by the benchmark's frozen
+    count (both planes read once, four values a window written), the
+    share, and the memory a call takes beyond its inputs. Returns the
+    kernel's record (the SF12 cell's numbers) for the JSON line."""
+    from phybench.metrics.scan_bound import scan_bound_s, scan_count
+    from phybench.traffic import generator
+
+    record = None
+    for name, mix, channels, seed in SCAN_CELLS:
+        cfg = json.loads((REPO / "phybench" / "configs" / f"{name}.json").read_text())
+        traffic = dict(json.loads((REPO / "phybench" / "traffic" / f"{mix}.json").read_text()),
+                       channels=channels, pool=1)
+        item = generator.make_pool(cfg, traffic, seed, dev)[0]
+        xr, xi = item.xr, item.xi
+        del item
+        p = LoraParams(sf=cfg["sf"], sync_word=cfg["sync_word"])
+        args = (*sync._downchirp(p, dev), p.n, p.osr, planar._decimation_phase(p))
+        reset_launches()
+        got = scan_k.scan_peaks(xr, xi, *args)
+        torch.cuda.synchronize()
+        check(scan_k.LAUNCHES == 1, f"phase 20 (f) {name}: {scan_k.LAUNCHES} launches in a call")
+        want = scan_k.scan_peaks_reference(xr, xi, *args)
+        windows = near = differ = differ_near = 0
+        gap = 0.0
+        spectra = scan_k.scan_spectra(xr, xi, *args)
+        for direction in range(2):
+            top2 = spectra[direction].topk(2, dim=-1).values
+            tie = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE_REL * top2[..., 0]
+            diff = got[direction] != want[direction]
+            windows += tie.numel()
+            near += int(tie.sum())
+            differ += int((diff & ~tie).sum())
+            differ_near += int((diff & tie).sum())
+            rel = (got[2 + direction] - want[2 + direction]).abs() / want[2 + direction]
+            gap = max(gap, float(rel.max()))
+            del top2, tie, diff, rel
+        del spectra
+        check(differ == 0 and gap <= 2e-5,
+              f"phase 20 (f) {name}: {differ} bins differ outside near-ties, peaks {gap:.3g} apart")
+        del got, want
+        t_kernel = cuda_ms(lambda: scan_k.scan_peaks(xr, xi, *args), iters=10, calls=5)
+        t_twin = cuda_ms(lambda: scan_k.scan_peaks_reference(xr, xi, *args), iters=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        scan_k.scan_peaks(xr, xi, *args)
+        peak_kernel = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        scan_k.scan_peaks_reference(xr, xi, *args)
+        peak_twin = torch.cuda.max_memory_allocated(dev) - base
+        samples = xr.numel()
+        flops, nbytes = scan_count(samples, p.n)
+        bound_s, bound_by = scan_bound_s(samples, p.n)
+        bound_ms = bound_s * 1e3
+        print(f"phase 20 (f): {card}: scan on {name}'s block {tuple(xr.shape)} (SF{p.sf}, "
+              f"{windows // 2} windows): CUDA kernel {t_kernel:.3f} ms, twin {t_twin:.3f} ms; "
+              f"bins equal outside near-ties ({near} of {windows} window-directions within "
+              f"{NEAR_TIE_REL:g} of a tie, {differ_near} of them differ), peaks within "
+              f"{gap:.3g}; bound {bound_ms:.3f} ms by {bound_by} ({nbytes:.4g} B, {flops:.4g} "
+              f"flop), {bound_ms / t_kernel:.3f} of it; memory a call beyond the inputs "
+              f"{peak_kernel / 1e9:.4f} GB (twin {peak_twin / 1e9:.3f} GB)", flush=True)
+        record = {"name": "scan", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/scan.cu",
+                  "replaces": None, "launches": 1, "max_abs_err": None, "cell": name,
+                  "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "near_ties": near, "differ_near_ties": differ_near,
+                  # the twin is the only PyTorch yardstick; no library call
+                  "library_ms": None}
+        del xr, xi
+        torch.cuda.empty_cache()
+    return record
 
 
 def fused_bound(n_rows, n, window=False):

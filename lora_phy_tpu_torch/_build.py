@@ -10,7 +10,9 @@ Nothing is compiled or loaded at import.
 Each kernel's wrapper in ``ops/`` holds its C entry point, a name and
 its parameter types (:data:`PTR`, :data:`I32`, :data:`I64`, the stream
 last), and launches it through :func:`launch`. A new kernel is its
-``.cu`` file, its entry in :data:`SOURCES`, its wrapper and its tests.
+``.cu`` file, its entry in :data:`SOURCES`, its wrapper and its tests;
+helpers that several sources share live in a header of ``csrc/``
+(:data:`HEADERS`).
 """
 
 from __future__ import annotations
@@ -30,11 +32,16 @@ from .utils.profiling import launch_range
 
 _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "fused_demod.cu", _PKG / "csrc" / "bf16_decide.cu",
-           _PKG / "csrc" / "dechirp.cu", _PKG / "csrc" / "windows.cu")
+           _PKG / "csrc" / "dechirp.cu", _PKG / "csrc" / "windows.cu",
+           _PKG / "csrc" / "scan.cu")
+# headers the sources include (a change rebuilds the library too)
+HEADERS = (_PKG / "csrc" / "fft_rows.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "lora_phy_tpu_torch"
 LIBRARY = BUILD_DIR / "liblora_phy_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -I: a copy of a source elsewhere (an ablation variant) finds the headers
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-I", str(_PKG / "csrc"))
 # ctypes types of the entry points' parameters
 PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -93,9 +100,10 @@ def compile_library(sources, library: pathlib.Path, verbose: bool = False) -> pa
 
 def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
     """Compile ``SOURCES`` into ``LIBRARY`` unless it is newer than every
-    source."""
+    source and header."""
     if (not force and LIBRARY.exists()
-            and all(LIBRARY.stat().st_mtime >= s.stat().st_mtime for s in SOURCES)):
+            and all(LIBRARY.stat().st_mtime >= s.stat().st_mtime
+                    for s in (*SOURCES, *HEADERS))):
         return LIBRARY
     return compile_library(SOURCES, LIBRARY, verbose)
 

@@ -42,6 +42,7 @@ from ..ops.planar import (_decimation_phase, _preamble_phase_step,
                           demodulate_spectrum_planar, detect_planar,
                           estimate_preamble_planar,
                           estimate_preamble_robust_planar, estimate_sro_planar)
+from ..ops.scan import scan_peaks, scan_spectra
 from ..utils.params import _window_table
 from ..utils.profiling import stage_range
 
@@ -116,29 +117,17 @@ def frame_sync_scan_planar(xr: torch.Tensor, xi: torch.Tensor,
     nwin = xr.shape[-1] // step
     lead = xr.shape[:-1]
     dev = xr.device
-
-    ar = xr[..., : nwin * step].reshape(*lead, nwin, step)
-    ai = xi[..., : nwin * step].reshape(*lead, nwin, step)
     dr, di = _downchirp(params, dev)
     dph = _decimation_phase(params)
 
-    def windows(pr, pi):
-        return (pr.reshape(*lead, nwin, n, osr)[..., dph],
-                pi.reshape(*lead, nwin, n, osr)[..., dph])
-
-    # up-dechirp (x * down) and down-dechirp (x * conj(down)), decimated,
-    # through ONE stacked DFT + argmax
-    ur, ui = windows(ar * dr - ai * di, ar * di + ai * dr)
-    vr, vi = windows(ar * dr + ai * di, ai * dr - ar * di)
+    # up-dechirp (x * down) and down-dechirp (x * conj(down)) of every
+    # decimated window, DFT'd: the first-max bins and peaks of both
+    # (ops/scan.py: the hand kernel on CUDA), or both whole spectra
     conc_ok = None
     if pre_acc == 1:
-        bins, peaks = argmax_bins_planar(torch.stack([ur, vr]),
-                                         torch.stack([ui, vi]), n, with_peak=True)
-        ub, db = bins[0], bins[1]
-        up_peak, dn_peak = peaks[0], peaks[1]
+        ub, db, up_peak, dn_peak = scan_peaks(xr, xi, dr, di, n, osr, dph)
     else:
-        m = dft_mag2_planar(torch.stack([ur, vr]), torch.stack([ui, vi]), n)
-        m_up, m_dn = m[0], m[1]                        # [..., W, n]
+        m_up, m_dn = scan_spectra(xr, xi, dr, di, n, osr, dph)   # [..., W, n]
         zrows = torch.zeros(*lead, min(pre_acc, nwin), n, device=dev)
 
         def lagged(x, j):

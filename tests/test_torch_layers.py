@@ -1,6 +1,6 @@
 """The port's structure, read from its source: imports point one way,
 ``runners -> parallel -> models -> ops -> utils``, with ``ops/planar.py``
-above the ops it dispatches to; and the four hand kernels launch through
+above the ops it dispatches to; and the five hand kernels launch through
 the one path of ``_build.launch``.
 
 The import checks parse the package's files (no module is imported), so
@@ -17,12 +17,12 @@ import pytest
 import torch
 
 from lora_phy_tpu_torch import LoraParams, _build
-from lora_phy_tpu_torch.ops import bf16_decide, dechirp, fused_demod, windows
+from lora_phy_tpu_torch.ops import bf16_decide, dechirp, fused_demod, scan, windows
 
 PKG = "lora_phy_tpu_torch"
 ROOT = pathlib.Path(__file__).resolve().parents[1] / PKG
 LAYERS = ("utils", "ops", "models", "parallel", "runners")
-KERNEL_OPS = ("fft", "dechirp", "windows", "fused_demod", "bf16_decide")
+KERNEL_OPS = ("fft", "dechirp", "windows", "fused_demod", "bf16_decide", "scan")
 # the one arrow that still points up: utils.profiling.demod_roofline reads
 # the four-step's factorisation (ops.fft._split) inside the function
 UPWARD = {("utils/profiling.py", f"{PKG}.ops.fft"), ("utils/profiling.py", f"{PKG}.ops.fft._split")}
@@ -90,6 +90,8 @@ WRAPPER_CALLS = {
         meta(4, 32), meta(4, 32), meta(4), meta(4), LoraParams(sf=5))),
     "bf16_decide": (bf16_decide, lambda: bf16_decide.bf16_decide_rows(
         meta(4, 32), meta(4, 32), 32)),
+    "scan": (scan, lambda: scan.scan_peaks(meta(2, 512), meta(2, 512), meta(128), meta(128),
+                                           128, 1, 0)),
 }
 
 
