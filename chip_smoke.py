@@ -195,7 +195,11 @@ Imports no JAX. Phases, one line each (or a few):
    -> demodulate_planar(fused=True) -> decode_payload, 8 x 8192 frames at
    a 0.3-bin CFO) untraced with its stage ranges and host-sync counters
    against the same call with them patched to no-ops, in turns: at most
-   2 % slower, two host syncs a call, one dechirp launch a call; (c) both kernels
+   2 % slower, two host syncs a call, one dechirp launch a call; then one
+   bulk call at the SF12 cell's shape (phybench bulk-sf12-b3328: 8 x 416
+   frames, fused=False): 106,496 rows decided (30 data symbols and the sync
+   pair a frame), every payload back, two host syncs, no decision kernel
+   launched; (c) both kernels
    alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
    SF7 main path's): fused_demod without and with the Hann window,
    bf16_decide with and without rotation, on tone rows whose CFO and
@@ -3277,15 +3281,7 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
     read of the offsets for both planes)."""
     from lora_phy_tpu_torch.utils import profiling
 
-    p = LoraParams(sf=7)
-    cfg = coded.CodedConfig(sf=7, cr=1, crc=True, whiten=True)
-    full = torch.from_numpy(np.random.RandomState(20).randint(
-        0, 256, (CHANNELS, FRAMES, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
-    xr, xi = planar.modulate_planar(coded.encode_payload(full, cfg), p)
-    ph = (2 * np.pi * 0.3 / p.n) * torch.arange(xr.shape[-1], device=dev, dtype=torch.float32)
-    c, s = torch.cos(ph), torch.sin(ph)
-    xr, xi = xr * c - xi * s, xr * s + xi * c
-    del ph, c, s
+    p, cfg, full, xr, xi = coded_frames_at_cfo(dev, 7, (CHANNELS, FRAMES), seed=20)
 
     def call():
         dr, di = planar.dechirp_planar(xr, xi, p)
@@ -3333,6 +3329,64 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
     check(syncs == 2, f"phase 20 (b) bulk: {syncs} host syncs a call, want 2")
     check(t_on <= 1.02 * t_off, f"phase 20 (b) bulk: the markers cost {t_on - t_off:.3f} ms, "
           f"over 2 % of the {t_off:.3f} ms call")
+    del xr, xi
+    torch.cuda.empty_cache()
+    phase20b_bulk_sf12(dev, card)
+
+
+def coded_frames_at_cfo(dev, sf, batch, seed):
+    """Frame-aligned coded frames of random 32-byte payloads (CR 4/5, CRC,
+    whitening) at a 0.3-bin CFO: ``(params, coding, payloads, xr, xi)``."""
+    p = LoraParams(sf=sf)
+    cfg = coded.CodedConfig(sf=sf, cr=1, crc=True, whiten=True)
+    full = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, (*batch, PAYLOAD_LEN)).astype(np.uint8)).to(dev)
+    xr, xi = planar.modulate_planar(coded.encode_payload(full, cfg), p)
+    ph = (2 * np.pi * 0.3 / p.n) * torch.arange(xr.shape[-1], device=dev, dtype=torch.float32)
+    c, s = torch.cos(ph), torch.sin(ph)
+    return p, cfg, full, xr * c - xi * s, xr * s + xi * c
+
+
+# the SF12 bulk cell's call (phybench bulk-sf12-b3328): 8 x 416 frames of
+# 32 SF12 symbol periods (2 sync + 30 coded), 131,072 samples
+SF12_BULK_BATCH = (8, 416)
+
+
+def phase20b_bulk_sf12(dev, card):
+    """One bulk coded call at the SF12 cell's shape, as
+    ``phybench/paths/bulk_wide.py`` makes it (``fused=False``, the exact
+    float32 route): the rows it decided (from the outputs' shape), no
+    decision kernel launched (``fused_demod`` and ``bf16_decide``'s
+    counters), the payloads decoded at a 0.3-bin CFO, the host syncs."""
+    from lora_phy_tpu_torch.utils import profiling
+
+    p, cfg, full, xr, xi = coded_frames_at_cfo(dev, 12, SF12_BULK_BATCH, seed=26)
+    reset_launches()
+    syncs_before = profiling.HOST_SYNCS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dr, di = planar.dechirp_planar(xr, xi, p)
+    res = planar.demodulate_planar(dr, di, p, fused=False)
+    payload, crc_ok, _ = coded.decode_payload(res.symbols, PAYLOAD_LEN, cfg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    read_launches("bulk_sf12")
+    syncs = profiling.HOST_SYNCS - syncs_before
+    # a row a symbol window: the data symbols and the sync pair of each frame
+    rows = res.symbols.numel() + 2 * res.sync_word.numel()
+    want = SF12_BULK_BATCH[0] * SF12_BULK_BATCH[1] * xr.shape[-1] // p.n
+    print(f"phase 20 (b): {card}: bulk coded call at SF12, {SF12_BULK_BATCH[0]} x "
+          f"{SF12_BULK_BATCH[1]} frames of {xr.shape[-1]} samples: {rows} rows decided; "
+          f"{syncs} host syncs; launches dechirp {DECHIRP_BY_PATH['bulk_sf12']}, "
+          f"fused_demod {FUSED_BY_PATH['bulk_sf12']}, bf16_decide {BF16_BY_PATH['bulk_sf12']}, "
+          f"scan {SCAN_BY_PATH['bulk_sf12']}; {first_ms:.1f} ms host wall, first call", flush=True)
+    check(rows == want, f"phase 20 (b) bulk SF12: {rows} rows decided, want {want}")
+    check(torch.equal(payload, full) and bool(crc_ok.all()),
+          "phase 20 (b) bulk SF12: the payloads do not decode at a 0.3-bin CFO")
+    check(FUSED_BY_PATH["bulk_sf12"] == 0 and BF16_BY_PATH["bulk_sf12"] == 0,
+          "phase 20 (b) bulk SF12: the exact float32 route launched a decision kernel")
+    check(syncs == 2, f"phase 20 (b) bulk SF12: {syncs} host syncs a call, want 2")
+    del xr, xi, dr, di, res, payload, crc_ok
     torch.cuda.empty_cache()
 
 
