@@ -198,8 +198,8 @@ Imports no JAX. Phases, one line each (or a few):
    2 % slower, two host syncs a call, one dechirp launch a call; then one
    bulk call at the SF12 cell's shape (phybench bulk-sf12-b3328: 8 x 416
    frames, fused=False): 106,496 rows decided (30 data symbols and the sync
-   pair a frame), every payload back, two host syncs, no decision kernel
-   launched; (c) both kernels
+   pair a frame), every payload back, two host syncs, one launch of the
+   decide kernel and none of fused_demod or bf16_decide; (c) both kernels
    alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
    SF7 main path's): fused_demod without and with the Hann window,
    bf16_decide with and without rotation, on tone rows whose CFO and
@@ -223,7 +223,13 @@ Imports no JAX. Phases, one line each (or a few):
    relative 2e-5, both times, the benchmark's frozen count's bound
    (phybench/metrics/scan_bound.py) and the share, the memory a call takes;
    the scan's launches and spectra calls on each path (one launch a scan at
-   pre_acc 1 on the card, none on the bulk path);
+   pre_acc 1 on the card, none on the bulk path); (g) the f32 decide kernel
+   (csrc/decide.cu) at the SF12 bulk cell's shape, its traffic (8 x 416
+   frames x 32 rows of 4096): its bins against its twin's (decide_reference:
+   the derotated planes, the torch four-step's argmax) equal outside
+   near-ties, the near-ties counted, both times, the benchmark's frozen
+   count's bound (phybench/metrics/kernel_bound.py) and the share, the
+   memory a call takes; its launches on each path;
 21. the repo-level twins of the files that drive the JAX package: (a)
    torch_graft_entry.entry's forward on the card, its decisions equal to
    the same forward on the CPU, the payloads back, sync 0x12, its CUDA-event
@@ -244,7 +250,7 @@ Phases 9-10 are serial host loops (the adaptive receiver scans its buffer
 again for every frame, as the JAX twin's): 15-20 s of host time; so are the
 SIC loop and the blind receiver's six SFs (phases 12-13), the flowgraph and
 phase 18's sweep. Phases 14-18 write their files to a temporary directory. Then a JSON
-line of the three kernels (with the launches counted on each path) and, last,
+line of the kernels (with the launches counted on each path) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.
 """
@@ -269,6 +275,7 @@ from lora_phy_tpu_torch.ops import channelizer, fft, impair, planar
 from lora_phy_tpu_torch.ops.chirp import base_downchirp_planar
 from lora_phy_tpu_torch.ops import bf16_decide as bf16
 from lora_phy_tpu_torch.ops import dechirp as dechirp_k
+from lora_phy_tpu_torch.ops import decide as decide_k
 from lora_phy_tpu_torch.ops import fused_demod as fused
 from lora_phy_tpu_torch.ops import scan as scan_k
 from lora_phy_tpu_torch.ops import windows as windows_k
@@ -352,12 +359,14 @@ BF16_SF4_FRAMES, BF16_SF6_FRAMES = 65536, 19648
 
 
 # the bf16 decision kernel's, fused_demod's, the dechirp kernel's, the
-# windows kernel's and the scan kernel's launches on each path, the window
-# gather's calls that took the zero-offset view and the scans that kept
-# whole spectra (pre_acc > 1), read by read_launches
+# windows kernel's, the scan kernel's and the f32 decide kernel's launches
+# on each path, the window gather's calls that took the zero-offset view
+# and the scans that kept whole spectra (pre_acc > 1), read by
+# read_launches
 BF16_BY_PATH, FUSED_BY_PATH, DECHIRP_BY_PATH = {}, {}, {}
 WINDOWS_BY_PATH, ALIGNED_BY_PATH = {}, {}
 SCAN_BY_PATH, SPECTRA_BY_PATH = {}, {}
+DECIDE_BY_PATH = {}
 
 
 def reset_launches():
@@ -367,12 +376,13 @@ def reset_launches():
     dechirp_k.LAUNCHES = 0
     windows_k.LAUNCHES = windows_k.ALIGNED = 0
     scan_k.LAUNCHES = scan_k.SPECTRA = 0
+    decide_k.LAUNCHES = 0
 
 
 def read_launches(path):
     """Read the counters just after ``path``: each kernel's launches are
     added to its BF16_BY_PATH / FUSED_BY_PATH / DECHIRP_BY_PATH /
-    WINDOWS_BY_PATH / SCAN_BY_PATH entry, the aligned window gathers to
+    WINDOWS_BY_PATH / SCAN_BY_PATH / DECIDE_BY_PATH entry, the aligned window gathers to
     ALIGNED_BY_PATH, the spectra scans to SPECTRA_BY_PATH; fused_demod's
     are returned."""
     BF16_BY_PATH[path] = BF16_BY_PATH.get(path, 0) + bf16.LAUNCHES
@@ -382,6 +392,7 @@ def read_launches(path):
     ALIGNED_BY_PATH[path] = ALIGNED_BY_PATH.get(path, 0) + windows_k.ALIGNED
     SCAN_BY_PATH[path] = SCAN_BY_PATH.get(path, 0) + scan_k.LAUNCHES
     SPECTRA_BY_PATH[path] = SPECTRA_BY_PATH.get(path, 0) + scan_k.SPECTRA
+    DECIDE_BY_PATH[path] = DECIDE_BY_PATH.get(path, 0) + decide_k.LAUNCHES
     return fused.LAUNCHES
 
 
@@ -624,6 +635,8 @@ def main():
     torch.cuda.empty_cache()
     record20f = phase20f_scan(dev, card)
     torch.cuda.empty_cache()
+    record20g = phase20g_decide(dev, card)
+    torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -645,7 +658,8 @@ def main():
     record20e["aligned_by_path"] = dict(ALIGNED_BY_PATH)
     record20f["launches_by_path"] = dict(SCAN_BY_PATH)
     record20f["spectra_by_path"] = dict(SPECTRA_BY_PATH)
-    print(json.dumps({"kernels": [record, record19, record20, record20e, record20f]}),
+    record20g["launches_by_path"] = dict(DECIDE_BY_PATH)
+    print(json.dumps({"kernels": [record, record19, record20, record20e, record20f, record20g]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -3198,10 +3212,15 @@ def phase20a_bench(dev, card):
             head["bf16_decide"] == head["calls"] and sf12["bf16_decide"] == sf12["calls"])),
               f"phase 20 (a) {label}: {bf16_n} bf16_decide launches, want {want_bf16} "
               f"(headline {head}, SF12 {sf12})")
+        want_decide = 0 if label == "bf16" else sf12["calls"]
+        check(sf12["decide"] == want_decide,
+              f"phase 20 (a) {label}: {sf12['decide']} decide launches in {sf12['calls']} SF12 "
+              f"calls, want {want_decide}")
         print(f"phase 20 (a) {label}: {card}: {json.dumps(line)}", flush=True)
         print(f"phase 20 (a) {label}: launches fused_demod {fused_n} ({head['calls']} headline "
               f"calls), bf16_decide {bf16_n} ({head['calls']} headline + {sf12['calls']} SF12 "
-              f"calls); regressed {line['regressed']} (reported, not a gate here: "
+              f"calls), decide {DECIDE_BY_PATH[path]} ({sf12['decide']} in the SF12 stage); "
+              f"regressed {line['regressed']} (reported, not a gate here: "
               f"the floors hold for one card and power limit)", flush=True)
         torch.cuda.empty_cache()
 
@@ -3324,8 +3343,9 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
           f"{t_on / t_off - 1:+.4f}); {syncs} host syncs a call", flush=True)
     print(f"phase 20 (b): bulk call's kernel launches: dechirp {DECHIRP_BY_PATH['bulk']}, "
           f"fused_demod {FUSED_BY_PATH['bulk']}, bf16_decide {BF16_BY_PATH['bulk']}, scan "
-          f"{SCAN_BY_PATH['bulk']}", flush=True)
-    check(SCAN_BY_PATH["bulk"] == 0, "phase 20 (b) bulk: the bulk call launched the scan kernel")
+          f"{SCAN_BY_PATH['bulk']}, decide {DECIDE_BY_PATH['bulk']}", flush=True)
+    check(SCAN_BY_PATH["bulk"] == 0 and DECIDE_BY_PATH["bulk"] == 0,
+          "phase 20 (b) bulk: the SF7 bulk call launched the scan or the decide kernel")
     check(syncs == 2, f"phase 20 (b) bulk: {syncs} host syncs a call, want 2")
     check(t_on <= 1.02 * t_off, f"phase 20 (b) bulk: the markers cost {t_on - t_off:.3f} ms, "
           f"over 2 % of the {t_off:.3f} ms call")
@@ -3355,9 +3375,10 @@ SF12_BULK_BATCH = (8, 416)
 def phase20b_bulk_sf12(dev, card):
     """One bulk coded call at the SF12 cell's shape, as
     ``phybench/paths/bulk_wide.py`` makes it (``fused=False``, the exact
-    float32 route): the rows it decided (from the outputs' shape), no
-    decision kernel launched (``fused_demod`` and ``bf16_decide``'s
-    counters), the payloads decoded at a 0.3-bin CFO, the host syncs."""
+    float32 route): the rows it decided (from the outputs' shape), one
+    launch of the decide kernel and none of ``fused_demod`` or
+    ``bf16_decide``, the payloads decoded at a 0.3-bin CFO, the host
+    syncs (still 2: the kernel adds none)."""
     from lora_phy_tpu_torch.utils import profiling
 
     p, cfg, full, xr, xi = coded_frames_at_cfo(dev, 12, SF12_BULK_BATCH, seed=26)
@@ -3379,12 +3400,15 @@ def phase20b_bulk_sf12(dev, card):
           f"{SF12_BULK_BATCH[1]} frames of {xr.shape[-1]} samples: {rows} rows decided; "
           f"{syncs} host syncs; launches dechirp {DECHIRP_BY_PATH['bulk_sf12']}, "
           f"fused_demod {FUSED_BY_PATH['bulk_sf12']}, bf16_decide {BF16_BY_PATH['bulk_sf12']}, "
-          f"scan {SCAN_BY_PATH['bulk_sf12']}; {first_ms:.1f} ms host wall, first call", flush=True)
+          f"scan {SCAN_BY_PATH['bulk_sf12']}, decide {DECIDE_BY_PATH['bulk_sf12']}; "
+          f"{first_ms:.1f} ms host wall, first call", flush=True)
     check(rows == want, f"phase 20 (b) bulk SF12: {rows} rows decided, want {want}")
     check(torch.equal(payload, full) and bool(crc_ok.all()),
           "phase 20 (b) bulk SF12: the payloads do not decode at a 0.3-bin CFO")
     check(FUSED_BY_PATH["bulk_sf12"] == 0 and BF16_BY_PATH["bulk_sf12"] == 0,
-          "phase 20 (b) bulk SF12: the exact float32 route launched a decision kernel")
+          "phase 20 (b) bulk SF12: the exact float32 route launched fused_demod or bf16_decide")
+    check(DECIDE_BY_PATH["bulk_sf12"] == 1,
+          f"phase 20 (b) bulk SF12: {DECIDE_BY_PATH['bulk_sf12']} decide launches, want 1")
     check(syncs == 2, f"phase 20 (b) bulk SF12: {syncs} host syncs a call, want 2")
     del xr, xi, dr, di, res, payload, crc_ok
     torch.cuda.empty_cache()
@@ -3603,6 +3627,78 @@ def phase20f_scan(dev, card):
         del xr, xi
         torch.cuda.empty_cache()
     return record
+
+# the SF12 bulk cell's configuration, traffic mix and one pool item's seed
+# (phase 20 (g))
+DECIDE_CELL = ("bulk-sf12-bw500-cr45", "bulk-sf12-b3328", 2 ** 33 + 77)
+
+
+def phase20g_decide(dev, card):
+    """The f32 decide kernel at the SF12 bulk cell's shape on its traffic
+    (one pool item of the generator, dechirped, through the demodulator's
+    front): bins equal to the twin's (``decide_reference``) outside
+    near-ties, the near-ties and any bin that differs there counted; the
+    kernel's and the twin's times, the bound by the benchmark's frozen
+    count (every row derotated, FFT'd and decided, both planes read once),
+    the share, and the memory a call takes beyond its inputs. Returns the
+    kernel's record for the JSON line."""
+    from phybench.metrics.kernel_bound import fused_demod_bound_s, fused_demod_count
+    from phybench.traffic import generator
+
+    name, mix, seed = DECIDE_CELL
+    cfg = json.loads((REPO / "phybench" / "configs" / f"{name}.json").read_text())
+    traffic = dict(json.loads((REPO / "phybench" / "traffic" / f"{mix}.json").read_text()),
+                   pool=1)
+    item = generator.make_pool(cfg, traffic, seed, dev)[0]
+    p = LoraParams(sf=cfg["sf"], sync_word=cfg["sync_word"])
+    xr, xi = planar.dechirp_planar(item.xr, item.xi, p)
+    del item
+    yr, yi, rate, _, scale, _, _ = planar._demod_stage_planar(xr, xi, p, False, None)
+    yr, yi = yr.contiguous(), yi.contiguous()
+    del xr, xi
+    args = (yr, yi, rate, scale, p)
+    reset_launches()
+    got = decide_k.decide_rows(*args)
+    torch.cuda.synchronize()
+    check(decide_k.LAUNCHES == 1, f"phase 20 (g): {decide_k.LAUNCHES} launches in a call")
+    want = decide_k.decide_reference(*args)
+    fr, fi = decide_k._rotated_windows_planar(yr, yi, rate, None, scale, p)
+    top2 = fft.dft_mag2_planar(fr, fi, p.n).topk(2, dim=-1).values
+    del fr, fi
+    tie = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE_REL * top2[..., 0]
+    diff = got != want
+    rows, near = tie.numel(), int(tie.sum())
+    differ, differ_near = int((diff & ~tie).sum()), int((diff & tie).sum())
+    del top2, tie, diff, got, want
+    torch.cuda.empty_cache()
+    check(differ == 0, f"phase 20 (g): {differ} bins differ outside near-ties")
+    t_kernel = cuda_ms(lambda: decide_k.decide_rows(*args), iters=10, calls=5)
+    t_twin = cuda_ms(lambda: decide_k.decide_reference(*args), iters=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    decide_k.decide_rows(*args)
+    peak_kernel = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    decide_k.decide_reference(*args)
+    peak_twin = torch.cuda.max_memory_allocated(dev) - base
+    flops, nbytes = fused_demod_count(rows, p.n)
+    bound_s, bound_by = fused_demod_bound_s(rows, p.n)
+    bound_ms = bound_s * 1e3
+    print(f"phase 20 (g): {card}: decide on {name}'s call {tuple(yr.shape)} (SF{p.sf}, {rows} "
+          f"rows): CUDA kernel {t_kernel:.3f} ms, twin {t_twin:.3f} ms; bins equal outside "
+          f"near-ties ({near} of {rows} rows within {NEAR_TIE_REL:g} of a tie, {differ_near} "
+          f"of them differ); bound {bound_ms:.3f} ms by {bound_by} ({nbytes:.4g} B, "
+          f"{flops:.4g} flop), {bound_ms / t_kernel:.3f} of it; memory a call beyond the "
+          f"inputs {peak_kernel / 1e9:.4f} GB (twin {peak_twin / 1e9:.3f} GB)", flush=True)
+    del yr, yi, args
+    torch.cuda.empty_cache()
+    return {"name": "decide", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/decide.cu",
+            "replaces": None, "launches": 1, "max_abs_err": None, "cell": name,
+            "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": bound_by,
+            "near_ties": near, "differ_near_ties": differ_near,
+            # the twin is the only PyTorch yardstick; no library call
+            "library_ms": None}
 
 
 def fused_bound(n_rows, n, window=False):

@@ -4,20 +4,22 @@ main path, the preamble (plain and multipath-robust) and clock-drift
 estimators, the spectrum demod that the block receiver
 (:mod:`..models.sync`) runs, the public estimate / compensate API, and
 the helpers these share (rounding, phase wrap, the osr-phase view and
-pick, the derotation, the sync byte, the window tensor), whose JAX
-twins are in ``lora_phy_tpu/models/modem.py``.
+pick, the sync byte, the window tensor), whose JAX twins are in
+``lora_phy_tpu/models/modem.py``; the derotation's are in :mod:`.decide`.
 
 This module sits above the ops it dispatches to: the planar DFT of
 :mod:`.fft`, the hand kernels' wrappers :mod:`.dechirp`,
-:mod:`.windows`, :mod:`.fused_demod` and :mod:`.bf16_decide`, and
-:mod:`.chirp`. None of them imports it, and it imports nothing of
-:mod:`..models`.
+:mod:`.windows`, :mod:`.fused_demod`, :mod:`.decide` and
+:mod:`.bf16_decide`, and :mod:`.chirp`. None of them imports it, and it
+imports nothing of :mod:`..models`.
 
 Same estimator, tie-breaks and rounding as the JAX module (and so as the
 reference, src/phy/LoRaDemod.cpp:49-195), computed in float32 on
 (re, im) planes with the DFT as real matmuls (four-step for N > 128).
 ``demodulate_planar(fused=True)`` sends the per-symbol stage at N <= 128
-through the hand-written CUDA kernel of :mod:`.fused_demod`.
+through the hand-written CUDA kernel of :mod:`.fused_demod`; with
+``fused=False`` the exact float32 stage at N = 256..4096 on a CUDA tensor
+is the hand-written kernel of :mod:`.decide`.
 
 Reduced precision is opt-in, as in the JAX module: ``mxu_dtype=torch.bfloat16``
 on the DFT functions and ``precision="bf16"`` on the demodulators round
@@ -45,6 +47,7 @@ from ..utils.profiling import host_sync, stage_range
 from .bf16_decide import bf16_decide_rows
 from .chirp import base_downchirp_planar, gen_chirp_np, modulate_symbols_planar
 from .dechirp import dechirp
+from .decide import _rotated_windows_planar, _rotation_planes, decide_rows
 from .fft import _argmax_bins_ops, dft_mag2_planar, dft_planar
 from .fused_demod import fused_demod
 from .windows import shifted_windows
@@ -151,18 +154,6 @@ def _pick_osr_phase(p: torch.Tensor, idx: torch.Tensor,
         min_idx = idx_masked.amin(dim=-1, keepdim=True)
         cand = cand & (idx_masked == min_idx)
     return torch.argmax(cand.to(torch.int32), dim=-1)   # first winning phase
-
-
-def _derotation_vector(rate: torch.Tensor, n: int):
-    """Per-sample CFO derotation ``exp(j*rate*i)`` over [..., N], broadcast
-    over the symbol axis by the caller, as its (cos, sin) planes (the JAX
-    twin ``lora_phy_tpu/models/modem.py:_derotation_vector`` returns the
-    complex vector; the planar pipeline takes the planes and so makes no
-    complex copy). The reference's per-symbol constant phase ``rate*(s*N +
-    t_off/osr)`` (src/phy/LoRaDemod.cpp:151-152) leaves every magnitude
-    unchanged and is dropped, as in the JAX twin."""
-    phi = rate[..., None] * torch.arange(n, dtype=torch.float32, device=rate.device)
-    return torch.cos(phi), torch.sin(phi)
 
 
 def _sync_from_symbols(idx0: torch.Tensor, idx1: torch.Tensor, sf: int) -> torch.Tensor:
@@ -425,7 +416,10 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
 
     ``fused=True`` routes the per-symbol stage (N <= 128) through
     :func:`.fused_demod.fused_demod` — the CUDA kernel on a CUDA tensor,
-    its plain twin on a CPU tensor. ``assume_normalized=True`` skips the
+    its plain twin on a CPU tensor. Otherwise, at ``precision='f32'``, the
+    stage is :func:`.decide.decide_rows`: on a CUDA tensor at N = 256..4096
+    the kernel ``csrc/decide.cu``, else its twin (the derotated planes and
+    the planar DFT's argmax). ``assume_normalized=True`` skips the
     [-1, 1] rescale scan. ``known_offsets=(cfo, time_offset)`` bypasses
     the 2-symbol estimator. ``precision='bf16'`` rounds the DFT operands
     to bf16 (f32 sums); the derotation and the decision go through
@@ -436,8 +430,8 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     While a profiler runs, the stages are ``record_function`` ranges that
     do not nest: the front's ``planar.scale``, ``planar.estimate`` and
     ``planar.windows`` (:func:`_demod_stage_planar`), then
-    ``planar.decide`` around the per-symbol stage (the kernel, the bf16
-    kernel or torch ops; the sync word is outside it). On a CUDA device
+    ``planar.decide`` around the per-symbol stage (a kernel or torch ops;
+    the sync word is outside it). On a CUDA device
     the call makes two host syncs
     (:func:`..utils.profiling.host_sync`): one in the estimate
     (:func:`detect_planar`), one in the window gather, which reads
@@ -466,8 +460,7 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
                                     si.reshape(-1, n).contiguous(),
                                     rows_per_rot=rows[-1]).reshape(rows)
         else:
-            fr, fi = _rotated_windows_planar(yr, yi, rate, t_off, scale, params)
-            syms = argmax_bins_planar(fr, fi, params.n)
+            syms = decide_rows(yr, yi, rate, scale, params)
 
     sync = _sync_from_symbols(syms[..., 0], syms[..., 1], params.sf)
     return PlanarDemodResult(syms[..., 2:], sync, cfo, time_offset)
@@ -565,36 +558,6 @@ def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
         t_off = _round_half_away(time_offset).to(torch.int32)
         yr, yi = shifted_windows(xr, xi, total_symbols, n, osr, t_off, dec_phase)
     return yr, yi, rate, t_off, scale, cfo, time_offset
-
-
-def _rotated_windows_planar(yr: torch.Tensor, yi: torch.Tensor,
-                            rate: torch.Tensor, t_off: torch.Tensor, scale,
-                            params: LoraParams):
-    """Derotation with the scale and the window folded into the rotation
-    factors: the pre-DFT [..., S, N] planes. Only the per-sample
-    ``exp(j*rate*i)`` factor is applied — the per-symbol constant phase
-    ``rate*(s*N + t_off/osr)`` leaves every magnitude unchanged, so
-    ``t_off`` is accepted for signature stability only (see the JAX twin)."""
-    del t_off
-    cr, si_ = _rotation_planes(rate, scale, params)
-    cr = cr[..., None, :]
-    si_ = si_[..., None, :]
-    fr = yr * cr - yi * si_
-    fi = yr * si_ + yi * cr
-    return fr, fi
-
-
-def _rotation_planes(rate: torch.Tensor, scale, params: LoraParams):
-    """The [..., N] (cos, sin) rotation planes of one frame, times the
-    amplitude ``scale`` ([...] or None) and the window."""
-    cr, si_ = _derotation_vector(rate, params.n)              # [..., N]
-    if scale is not None:
-        cr = cr * scale[..., None]
-        si_ = si_ * scale[..., None]
-    window = _window_tensor(params, rate.device)
-    if window is not None:
-        cr, si_ = cr * window, si_ * window
-    return cr, si_
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,7 @@ import torch
 
 from ..models import modem, stream, sync
 from ..models.awgn import _simulate_point_planar
-from ..ops import bf16_decide, fused_demod, planar
+from ..ops import bf16_decide, decide, fused_demod, planar
 from ..ops.channelizer import channelize_planar, synthesize_channels_planar
 from ..utils.params import LoraParams
 from ._cli import DEVICE_FLAG, device_from, parse_flags
@@ -118,8 +118,8 @@ def _timeit(fn, sync_fn, iters, repeats=2):
 
 
 class _Stage:
-    """Counts a stage's calls and the launches of both kernels in it into
-    :data:`LAST_RUN`."""
+    """Counts a stage's calls and the launches of the decision kernels in
+    it into :data:`LAST_RUN`."""
 
     def __init__(self, name: str):
         self.name = name
@@ -132,13 +132,14 @@ class _Stage:
         return call
 
     def __enter__(self):
-        self.f0, self.b0 = fused_demod.LAUNCHES, bf16_decide.LAUNCHES
+        self.f0, self.b0, self.d0 = fused_demod.LAUNCHES, bf16_decide.LAUNCHES, decide.LAUNCHES
         return self
 
     def __exit__(self, *exc):
         LAST_RUN[self.name] = {"calls": self.calls,
                                "fused_demod": fused_demod.LAUNCHES - self.f0,
-                               "bf16_decide": bf16_decide.LAUNCHES - self.b0}
+                               "bf16_decide": bf16_decide.LAUNCHES - self.b0,
+                               "decide": decide.LAUNCHES - self.d0}
 
 
 def payload_draws(shp: Shapes):

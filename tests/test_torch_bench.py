@@ -176,7 +176,8 @@ def test_main_prints_bench_py_line(capsys):
                                 "wideband_rx", "awgn", "latency_sf7", "latency_sf12"}
     assert tb.LAST_RUN["headline"]["calls"] == 2 + 2 * 3 * SHP.iters
     assert tb.LAST_RUN["sf12"]["calls"] == 1 + 2 * 12
-    assert not any(v["fused_demod"] or v["bf16_decide"] for v in tb.LAST_RUN.values())
+    assert not any(v["fused_demod"] or v["bf16_decide"] or v["decide"]
+                   for v in tb.LAST_RUN.values())
 
 
 @pytest.mark.parametrize("flag", ["--fused", "--precision=bf16"])

@@ -1,6 +1,6 @@
 """The port's structure, read from its source: imports point one way,
 ``runners -> parallel -> models -> ops -> utils``, with ``ops/planar.py``
-above the ops it dispatches to; and the five hand kernels launch through
+above the ops it dispatches to; and the six hand kernels launch through
 the one path of ``_build.launch``.
 
 The import checks parse the package's files (no module is imported), so
@@ -17,12 +17,12 @@ import pytest
 import torch
 
 from lora_phy_tpu_torch import LoraParams, _build
-from lora_phy_tpu_torch.ops import bf16_decide, dechirp, fused_demod, scan, windows
+from lora_phy_tpu_torch.ops import bf16_decide, dechirp, decide, fused_demod, scan, windows
 
 PKG = "lora_phy_tpu_torch"
 ROOT = pathlib.Path(__file__).resolve().parents[1] / PKG
 LAYERS = ("utils", "ops", "models", "parallel", "runners")
-KERNEL_OPS = ("fft", "dechirp", "windows", "fused_demod", "bf16_decide", "scan")
+KERNEL_OPS = ("fft", "dechirp", "windows", "fused_demod", "bf16_decide", "scan", "decide")
 # the one arrow that still points up: utils.profiling.demod_roofline reads
 # the four-step's factorisation (ops.fft._split) inside the function
 UPWARD = {("utils/profiling.py", f"{PKG}.ops.fft"), ("utils/profiling.py", f"{PKG}.ops.fft._split")}
@@ -92,6 +92,8 @@ WRAPPER_CALLS = {
         meta(4, 32), meta(4, 32), 32)),
     "scan": (scan, lambda: scan.scan_peaks(meta(2, 512), meta(2, 512), meta(128), meta(128),
                                            128, 1, 0)),
+    "decide": (decide, lambda: decide.decide_rows(meta(2, 3, 256), meta(2, 3, 256), meta(2),
+                                                  meta(2), LoraParams(sf=8))),
 }
 
 
