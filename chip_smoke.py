@@ -199,7 +199,13 @@ Imports no JAX. Phases, one line each (or a few):
    bulk call at the SF12 cell's shape (phybench bulk-sf12-b3328: 8 x 416
    frames, fused=False): 106,496 rows decided (30 data symbols and the sync
    pair a frame), every payload back, two host syncs, one launch of the
-   decide kernel and none of fused_demod or bf16_decide; (c) both kernels
+   decide kernel and none of fused_demod or bf16_decide, 72 CR 4/5
+   codewords a frame counted (coded.CODEWORDS); then one bulk call of the
+   SF9 cell's shape on its traffic (phybench bulk-sf9-b13312: 8 x 1664
+   frames of 66 symbols of 512 at -15..5 dB, CR 4/8): one decide launch,
+   958,464 codewords counted (coded.CODEWORDS[4]), flagged codewords in
+   some frames, bytes, crc_ok and fec_errors equal to the benchmark
+   reference's decode of the same symbols; (c) both kernels
    alone at N = 4, 8, 16, 32 and 64 over rows x N = 553,648,128 samples (the
    SF7 main path's): fused_demod without and with the Hann window,
    bf16_decide with and without rotation, on tone rows whose CFO and
@@ -224,8 +230,9 @@ Imports no JAX. Phases, one line each (or a few):
    (phybench/metrics/scan_bound.py) and the share, the memory a call takes;
    the scan's launches and spectra calls on each path (one launch a scan at
    pre_acc 1 on the card, none on the bulk path); (g) the f32 decide kernel
-   (csrc/decide.cu) at the SF12 bulk cell's shape, its traffic (8 x 416
-   frames x 32 rows of 4096): its bins against its twin's (decide_reference:
+   (csrc/decide.cu) at both wide bulk cells' shapes, their traffic (8 x 416
+   frames x 32 rows of 4096; 8 x 1664 frames x 66 rows of 512): its bins
+   against its twin's (decide_reference:
    the derotated planes, the torch four-step's argmax) equal outside
    near-ties, the near-ties counted, both times, the benchmark's frozen
    count's bound (phybench/metrics/kernel_bound.py) and the share, the
@@ -635,7 +642,7 @@ def main():
     torch.cuda.empty_cache()
     record20f = phase20f_scan(dev, card)
     torch.cuda.empty_cache()
-    record20g = phase20g_decide(dev, card)
+    record20g = [phase20g_decide(dev, card, cell) for cell in DECIDE_CELLS]
     torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
     torch.cuda.empty_cache()
@@ -658,9 +665,9 @@ def main():
     record20e["aligned_by_path"] = dict(ALIGNED_BY_PATH)
     record20f["launches_by_path"] = dict(SCAN_BY_PATH)
     record20f["spectra_by_path"] = dict(SPECTRA_BY_PATH)
-    record20g["launches_by_path"] = dict(DECIDE_BY_PATH)
-    print(json.dumps({"kernels": [record, record19, record20, record20e, record20f, record20g]}),
-          flush=True)
+    record20g[0]["launches_by_path"] = dict(DECIDE_BY_PATH)
+    print(json.dumps({"kernels": [record, record19, record20, record20e, record20f,
+                                  *record20g]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
@@ -3352,6 +3359,7 @@ def phase20b_bulk_markers(dev, card, rounds=6, calls=5):
     del xr, xi
     torch.cuda.empty_cache()
     phase20b_bulk_sf12(dev, card)
+    phase20b_bulk_sf9(dev, card)
 
 
 def coded_frames_at_cfo(dev, sf, batch, seed):
@@ -3384,6 +3392,7 @@ def phase20b_bulk_sf12(dev, card):
     p, cfg, full, xr, xi = coded_frames_at_cfo(dev, 12, SF12_BULK_BATCH, seed=26)
     reset_launches()
     syncs_before = profiling.HOST_SYNCS
+    words_before = coded.CODEWORDS.get(1, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dr, di = planar.dechirp_planar(xr, xi, p)
@@ -3393,11 +3402,13 @@ def phase20b_bulk_sf12(dev, card):
     first_ms = (time.perf_counter() - t0) * 1e3
     read_launches("bulk_sf12")
     syncs = profiling.HOST_SYNCS - syncs_before
+    words = coded.CODEWORDS.get(1, 0) - words_before
     # a row a symbol window: the data symbols and the sync pair of each frame
     rows = res.symbols.numel() + 2 * res.sync_word.numel()
     want = SF12_BULK_BATCH[0] * SF12_BULK_BATCH[1] * xr.shape[-1] // p.n
     print(f"phase 20 (b): {card}: bulk coded call at SF12, {SF12_BULK_BATCH[0]} x "
           f"{SF12_BULK_BATCH[1]} frames of {xr.shape[-1]} samples: {rows} rows decided; "
+          f"{words} CR 4/5 codewords decoded; "
           f"{syncs} host syncs; launches dechirp {DECHIRP_BY_PATH['bulk_sf12']}, "
           f"fused_demod {FUSED_BY_PATH['bulk_sf12']}, bf16_decide {BF16_BY_PATH['bulk_sf12']}, "
           f"scan {SCAN_BY_PATH['bulk_sf12']}, decide {DECIDE_BY_PATH['bulk_sf12']}; "
@@ -3410,7 +3421,90 @@ def phase20b_bulk_sf12(dev, card):
     check(DECIDE_BY_PATH["bulk_sf12"] == 1,
           f"phase 20 (b) bulk SF12: {DECIDE_BY_PATH['bulk_sf12']} decide launches, want 1")
     check(syncs == 2, f"phase 20 (b) bulk SF12: {syncs} host syncs a call, want 2")
+    # 2 CRC bytes with the 32: 68 nibbles in 6 blocks of 12 codewords a frame
+    check(words == SF12_BULK_BATCH[0] * SF12_BULK_BATCH[1] * 72,
+          f"phase 20 (b) bulk SF12: {words} codewords counted in one call")
     del xr, xi, dr, di, res, payload, crc_ok
+    torch.cuda.empty_cache()
+
+
+# the SF9 bulk cell (phybench bulk-sf9-b13312): the configuration, the
+# traffic mix and a seed of one pool item
+SF9_BULK_CELL = ("bulk-sf9-bw250-cr48", "bulk-sf9-b13312", 2 ** 33 + 28)
+# CR 4/8 codewords a 32-byte SF9 frame carries: 2 CRC bytes with the 32 are
+# 68 nibbles, 8 interleaver blocks of 9 codewords
+SF9_CODEWORDS = 72
+
+
+def phase20b_bulk_sf9(dev, card):
+    """One bulk coded call of the SF9 cell's shape on its traffic (one pool
+    item of the benchmark's generator: 8 x 1,664 frames of 66 symbols of
+    512 samples, -15..5 dB), as ``phybench/paths/bulk_wide.py`` makes it
+    (``fused=False``): one launch of the decide kernel and none of
+    ``fused_demod`` or ``bf16_decide``, the codewords the CR 4/8 decoder
+    counts (``coded.CODEWORDS[4]``, 72 a frame), the host syncs (2), the
+    frames whose Hamming(8,4) decode flagged a codeword, and the bytes,
+    ``crc_ok`` and ``fec_errors`` equal to the benchmark reference's decode
+    of the program's own symbols."""
+    from lora_phy_tpu_torch.utils import profiling
+    from phybench.reference import bulk as rbulk
+    from phybench.traffic import generator
+
+    name, mix, seed = SF9_BULK_CELL
+    cfg_json = json.loads((REPO / "phybench" / "configs" / f"{name}.json").read_text())
+    traffic = dict(json.loads((REPO / "phybench" / "traffic" / f"{mix}.json").read_text()),
+                   pool=1)
+    item = generator.make_pool(cfg_json, traffic, seed, dev)[0]
+    p = LoraParams(sf=cfg_json["sf"], sync_word=cfg_json["sync_word"])
+    cfg = coded.CodedConfig(sf=cfg_json["sf"], cr=cfg_json["cr"], crc=cfg_json["crc"],
+                            whiten=cfg_json["whiten"])
+    frames = item.payloads.shape[0] * item.payloads.shape[1]
+    reset_launches()
+    syncs_before = profiling.HOST_SYNCS
+    words_before = coded.CODEWORDS.get(4, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dr, di = planar.dechirp_planar(item.xr, item.xi, p)
+    res = planar.demodulate_planar(dr, di, p, fused=False)
+    payload, crc_ok, fec = coded.decode_payload(res.symbols, cfg_json["payload_bytes"], cfg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    read_launches("bulk_sf9")
+    syncs = profiling.HOST_SYNCS - syncs_before
+    words = coded.CODEWORDS.get(4, 0) - words_before
+    rows = res.symbols.numel() + 2 * res.sync_word.numel()
+    sent = item.payloads.reshape(frames, -1)
+    got = payload.cpu().numpy().reshape(frames, -1)
+    ok, fec = crc_ok.cpu().numpy().reshape(-1), fec.cpu().numpy().reshape(-1)
+    ref_pay, ref_ok, ref_fec = rbulk.decode(
+        res.symbols.cpu().numpy().reshape(frames, -1).astype(np.int64), cfg_json)
+    mismatch = int((np.any(ref_pay != got, axis=-1) | (ref_ok != ok) | (ref_fec != fec)).sum())
+    right = int(np.all(got == sent, axis=-1).sum())
+    flagged = int((fec > 0).sum())
+    print(f"phase 20 (b): {card}: bulk coded call at SF9 CR 4/8 on {mix}'s traffic, "
+          f"{frames} frames of {item.xr.shape[-1]} samples: {rows} rows decided; {words} "
+          f"codewords decoded ({SF9_CODEWORDS} a frame), {int(fec.sum())} flagged in {flagged} "
+          f"frames; {right} frames with the bytes sent, {int(ok.sum())} with crc_ok; "
+          f"{mismatch} frames whose decode differs from the reference's; {syncs} host syncs; "
+          f"launches dechirp {DECHIRP_BY_PATH['bulk_sf9']}, fused_demod "
+          f"{FUSED_BY_PATH['bulk_sf9']}, bf16_decide {BF16_BY_PATH['bulk_sf9']}, scan "
+          f"{SCAN_BY_PATH['bulk_sf9']}, decide {DECIDE_BY_PATH['bulk_sf9']}; "
+          f"{first_ms:.1f} ms host wall, first call", flush=True)
+    check(rows == frames * item.xr.shape[-1] // p.n,
+          f"phase 20 (b) bulk SF9: {rows} rows decided for {frames} frames")
+    check(words == frames * SF9_CODEWORDS,
+          f"phase 20 (b) bulk SF9: {words} codewords counted in one call, want "
+          f"{frames * SF9_CODEWORDS}")
+    check(DECIDE_BY_PATH["bulk_sf9"] == 1,
+          f"phase 20 (b) bulk SF9: {DECIDE_BY_PATH['bulk_sf9']} decide launches, want 1")
+    check(FUSED_BY_PATH["bulk_sf9"] == 0 and BF16_BY_PATH["bulk_sf9"] == 0,
+          "phase 20 (b) bulk SF9: the exact float32 route launched fused_demod or bf16_decide")
+    check(syncs == 2, f"phase 20 (b) bulk SF9: {syncs} host syncs a call, want 2")
+    check(flagged > 0, "phase 20 (b) bulk SF9: no frame's Hamming(8,4) decode flagged a codeword")
+    check(mismatch == 0, f"phase 20 (b) bulk SF9: {mismatch} frames decode otherwise than the "
+          f"reference's decoder of their symbols")
+    check(right >= 0.9 * frames, f"phase 20 (b) bulk SF9: {right} of {frames} frames decoded")
+    del item, dr, di, res, payload, crc_ok
     torch.cuda.empty_cache()
 
 
@@ -3630,13 +3724,15 @@ def phase20f_scan(dev, card):
 
 # the SF12 bulk cell's configuration, traffic mix and one pool item's seed
 # (phase 20 (g))
-DECIDE_CELL = ("bulk-sf12-bw500-cr45", "bulk-sf12-b3328", 2 ** 33 + 77)
+DECIDE_CELLS = (("bulk-sf12-bw500-cr45", "bulk-sf12-b3328", 2 ** 33 + 77),
+                ("bulk-sf9-bw250-cr48", "bulk-sf9-b13312", 2 ** 33 + 79))
 
 
-def phase20g_decide(dev, card):
-    """The f32 decide kernel at the SF12 bulk cell's shape on its traffic
-    (one pool item of the generator, dechirped, through the demodulator's
-    front): bins equal to the twin's (``decide_reference``) outside
+def phase20g_decide(dev, card, cell):
+    """The f32 decide kernel at a bulk cell's shape on its traffic (``cell``
+    an entry of ``DECIDE_CELLS``: one pool item of the generator, dechirped,
+    through the demodulator's front): bins equal to the twin's
+    (``decide_reference``) outside
     near-ties, the near-ties and any bin that differs there counted; the
     kernel's and the twin's times, the bound by the benchmark's frozen
     count (every row derotated, FFT'd and decided, both planes read once),
@@ -3645,7 +3741,7 @@ def phase20g_decide(dev, card):
     from phybench.metrics.kernel_bound import fused_demod_bound_s, fused_demod_count
     from phybench.traffic import generator
 
-    name, mix, seed = DECIDE_CELL
+    name, mix, seed = cell
     cfg = json.loads((REPO / "phybench" / "configs" / f"{name}.json").read_text())
     traffic = dict(json.loads((REPO / "phybench" / "traffic" / f"{mix}.json").read_text()),
                    pool=1)

@@ -25,6 +25,11 @@ from .. import device_of
 from ..ops import coding
 from ..utils.profiling import stage_range
 
+# codewords that decode_payload's FEC has decoded, by ``cr`` (1..4): a host
+# count from the codewords' shape, on every device; no device work, no sync
+CODEWORDS: dict[int, int] = {}
+
+
 @dataclasses.dataclass(frozen=True)
 class CodedConfig:
     """Static coded-chain options (gr-lora_sdr capture naming convention:
@@ -140,6 +145,7 @@ def decode_payload(symbols: torch.Tensor, nbytes: int, cfg: CodedConfig):
     ``crc_ok`` is all-True when CRC is disabled; ``fec_errors`` counts
     codewords with detected parity errors (corrected where the code can).
     Runs in the range ``coded.decode`` while a profiler runs; no host sync.
+    Adds the codewords decoded to ``CODEWORDS[cfg.cr]``.
     """
     with stage_range("coded.decode"):
         symbols = symbols.to(torch.int32) & 0xFFFF
@@ -148,6 +154,7 @@ def decode_payload(symbols: torch.Tensor, nbytes: int, cfg: CodedConfig):
         words = coding.binary_to_gray(symbols)
         codewords = coding.diagonal_deinterleave(words, cfg.ppm, cfg.rdd)
         nibbles, err = _fec_decode(codewords, cfg.cr)
+        CODEWORDS[cfg.cr] = CODEWORDS.get(cfg.cr, 0) + codewords.numel()
         total = nbytes + (2 if cfg.crc else 0)
         framed = coding.nibbles_to_bytes(nibbles[..., : total * 2])
         if cfg.whiten:

@@ -183,20 +183,30 @@ def argmax_bins_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
     return _argmax_bins_ops(xr, xi, n, mxu_dtype, with_peak)
 
 
+def _n_device(n: int, device) -> torch.Tensor:
+    """``N`` as a float32 scalar on ``device``, for :func:`detect_planar`'s
+    dB scale: a copy from pageable host memory, so on a CUDA device the
+    host waits there for the queue to drain (a counted host sync)."""
+    with host_sync():
+        return torch.tensor(n, dtype=torch.float32, device=device)
+
+
 def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
-                  mxu_dtype=None) -> PlanarDetection:
+                  mxu_dtype=None, n_dev=None) -> PlanarDetection:
     """Planar twin of ops.detect.detect (same argmax/tie-break/fIndex
     semantics, LoRaDetector.hpp:39-74).
 
-    One host sync a call on a CUDA device: ``N`` is copied to the device
-    from pageable host memory, which waits for the queue to drain."""
+    ``n_dev``: ``N`` as a float32 scalar on the planes' device
+    (:func:`_n_device`), or None to copy it here: one host sync a call on
+    a CUDA device (a copy from pageable host memory waits for the queue
+    to drain)."""
     sr, si = dft_planar(xr, xi, n, mxu_dtype)
     mag2 = sr * sr + si * si
     index = torch.argmax(mag2, dim=-1)
     max_value = mag2.amax(dim=-1)
     fundamental = torch.sqrt(max_value)
-    with host_sync():
-        n_dev = torch.tensor(n, dtype=torch.float32, device=xr.device)
+    if n_dev is None:
+        n_dev = _n_device(n, xr.device)
     scale_db = 20.0 * torch.log10(n_dev)
     power = 20.0 * torch.log10(fundamental) - scale_db
     total = mag2.sum(dim=-1)
@@ -217,18 +227,19 @@ def detect_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
 
 
 def _estimate_planar(xr: torch.Tensor, xi: torch.Tensor, n: int, osr: int,
-                     window, tie_break_idx: bool = True):
+                     window, tie_break_idx: bool = True, n_dev=None):
     """The 2-symbol CFO / timing estimate on (re, im) planes.
     ``tie_break_idx=True`` applies ``lora_demodulate``'s lowest-index
     tie-break across osr phases (src/phy/LoRaDemod.cpp:85-135), False
     ``estimate_offsets``'s plain scan (src/phy/phy.cpp:113). At osr > 1
     the phases' powers are compared as :func:`_tie_power_db`
-    recomputes them, so a true tie stays a tie."""
+    recomputes them, so a true tie stays a tie. ``n_dev`` as
+    :func:`detect_planar` takes it."""
     vr, vi = _osr_phase_view(xr, n, osr), _osr_phase_view(xi, n, osr)
     s = vr.shape[-3]
     if window is not None:
         vr, vi = vr * window, vi * window
-    det = detect_planar(vr, vi, n)
+    det = detect_planar(vr, vi, n, n_dev=n_dev)
     p, idx = det.power, det.index
     if osr > 1:
         p = _tie_power_db(vr, vi, idx, n)
@@ -433,8 +444,9 @@ def demodulate_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
     ``planar.decide`` around the per-symbol stage (a kernel or torch ops;
     the sync word is outside it). On a CUDA device
     the call makes two host syncs
-    (:func:`..utils.profiling.host_sync`): one in the estimate
-    (:func:`detect_planar`), one in the window gather, which reads
+    (:func:`..utils.profiling.host_sync`): one before the scale scan (the
+    copy of ``N`` for the estimate's :func:`detect_planar`, outside every
+    stage range), one in the window gather, which reads
     ``t_off == 0`` once for both planes (:func:`.windows.shifted_windows`);
     ``known_offsets`` leaves out the first."""
     mxu_dtype = _mxu_dtype(precision)
@@ -488,7 +500,7 @@ def demodulate_spectrum_planar(xr: torch.Tensor, xi: torch.Tensor,
     ``osr-1`` when receiving the reference's default TX fold with an
     injected time offset of 0 (see :func:`.windows.shifted_windows`). On a
     CUDA device the host syncs are :func:`demodulate_planar`'s two:
-    :func:`detect_planar`'s copy of ``N`` in the estimate (none with
+    the copy of ``N`` for the estimate, before the scale scan (none with
     ``known_offsets``) and the window gather's one ``t_off == 0`` read for
     both planes. ``precision='bf16'`` rounds the DFT operands to bf16 (torch
     ops on every device: the spectra are floats, not decisions)."""
@@ -525,6 +537,11 @@ def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
         raise ValueError("need at least the 2 sync symbols")   # phy.hpp:186
     xr = xr[..., : total_symbols * step]
     xi = xi[..., : total_symbols * step]
+    # The estimate's host sync, taken before the scale scan is queued: the
+    # host waits only for the work queued ahead (the dechirp), then queues
+    # the scan and the estimate's ~100 small ops while the device runs
+    # them, so the device does not idle while the host queues them.
+    n_dev = _n_device(n, xr.device) if known_offsets is None else None
 
     # Amplitude normalisation into [-1, 1] (src/phy/LoRaDemod.cpp:59-77),
     # folded into the derotation factors downstream (the argmax is
@@ -545,7 +562,7 @@ def _demod_stage_planar(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams,
             if scale is not None:
                 er = er * scale[..., None]
                 ei = ei * scale[..., None]
-            cfo, time_offset = _estimate_planar(er, ei, n, osr, window)
+            cfo, time_offset = _estimate_planar(er, ei, n, osr, window, n_dev=n_dev)
         else:
             batch = xr.shape[:-1]
             cfo = torch.broadcast_to(torch.as_tensor(
