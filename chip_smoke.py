@@ -236,7 +236,16 @@ Imports no JAX. Phases, one line each (or a few):
    the derotated planes, the torch four-step's argmax) equal outside
    near-ties, the near-ties counted, both times, the benchmark's frozen
    count's bound (phybench/metrics/kernel_bound.py) and the share, the
-   memory a call takes; its launches on each path;
+   memory a call takes; its launches on each path; (h) the lanes kernel
+   (csrc/lanes.cu) on one call of the SF12 gateway cell's lanes (its
+   traffic, 128 x 2^20 samples: 1,024 lanes x 34 derotated and 32 raw rows
+   of 4096, taken from the receiver as it calls the kernel): one launch in
+   that call and none with the spectra, its bins against its twin's
+   (lane_spectra_reference) equal outside near-ties, the near-ties counted,
+   peaks, sums and the clock drift's powers within a relative 1e-5; both
+   times, the bound (every row read once, 66 FFTs a lane) and the share;
+   the peak memory of the receiver's call with the kernel and with the
+   twin; its launches on each path;
 21. the repo-level twins of the files that drive the JAX package: (a)
    torch_graft_entry.entry's forward on the card, its decisions equal to
    the same forward on the CPU, the payloads back, sync 0x12, its CUDA-event
@@ -265,6 +274,7 @@ Any failure raises and exits non-zero before the last line.
 import contextlib
 import io
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -284,6 +294,7 @@ from lora_phy_tpu_torch.ops import bf16_decide as bf16
 from lora_phy_tpu_torch.ops import dechirp as dechirp_k
 from lora_phy_tpu_torch.ops import decide as decide_k
 from lora_phy_tpu_torch.ops import fused_demod as fused
+from lora_phy_tpu_torch.ops import lanes as lanes_k
 from lora_phy_tpu_torch.ops import scan as scan_k
 from lora_phy_tpu_torch.ops import windows as windows_k
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
@@ -366,14 +377,14 @@ BF16_SF4_FRAMES, BF16_SF6_FRAMES = 65536, 19648
 
 
 # the bf16 decision kernel's, fused_demod's, the dechirp kernel's, the
-# windows kernel's, the scan kernel's and the f32 decide kernel's launches
-# on each path, the window gather's calls that took the zero-offset view
-# and the scans that kept whole spectra (pre_acc > 1), read by
-# read_launches
+# windows kernel's, the scan kernel's, the f32 decide kernel's and the
+# lanes kernel's launches on each path, the window gather's calls that took
+# the zero-offset view and the scans that kept whole spectra (pre_acc > 1),
+# read by read_launches
 BF16_BY_PATH, FUSED_BY_PATH, DECHIRP_BY_PATH = {}, {}, {}
 WINDOWS_BY_PATH, ALIGNED_BY_PATH = {}, {}
 SCAN_BY_PATH, SPECTRA_BY_PATH = {}, {}
-DECIDE_BY_PATH = {}
+DECIDE_BY_PATH, LANES_BY_PATH = {}, {}
 
 
 def reset_launches():
@@ -384,12 +395,14 @@ def reset_launches():
     windows_k.LAUNCHES = windows_k.ALIGNED = 0
     scan_k.LAUNCHES = scan_k.SPECTRA = 0
     decide_k.LAUNCHES = 0
+    lanes_k.LAUNCHES = 0
 
 
 def read_launches(path):
     """Read the counters just after ``path``: each kernel's launches are
     added to its BF16_BY_PATH / FUSED_BY_PATH / DECHIRP_BY_PATH /
-    WINDOWS_BY_PATH / SCAN_BY_PATH / DECIDE_BY_PATH entry, the aligned window gathers to
+    WINDOWS_BY_PATH / SCAN_BY_PATH / DECIDE_BY_PATH / LANES_BY_PATH entry, the aligned
+    window gathers to
     ALIGNED_BY_PATH, the spectra scans to SPECTRA_BY_PATH; fused_demod's
     are returned."""
     BF16_BY_PATH[path] = BF16_BY_PATH.get(path, 0) + bf16.LAUNCHES
@@ -400,6 +413,7 @@ def read_launches(path):
     SCAN_BY_PATH[path] = SCAN_BY_PATH.get(path, 0) + scan_k.LAUNCHES
     SPECTRA_BY_PATH[path] = SPECTRA_BY_PATH.get(path, 0) + scan_k.SPECTRA
     DECIDE_BY_PATH[path] = DECIDE_BY_PATH.get(path, 0) + decide_k.LAUNCHES
+    LANES_BY_PATH[path] = LANES_BY_PATH.get(path, 0) + lanes_k.LAUNCHES
     return fused.LAUNCHES
 
 
@@ -644,6 +658,8 @@ def main():
     torch.cuda.empty_cache()
     record20g = [phase20g_decide(dev, card, cell) for cell in DECIDE_CELLS]
     torch.cuda.empty_cache()
+    record20h = phase20h_lanes(dev, card)
+    torch.cuda.empty_cache()
     record["small_n"], record19["small_n"] = phase20c_small_n(dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -666,8 +682,9 @@ def main():
     record20f["launches_by_path"] = dict(SCAN_BY_PATH)
     record20f["spectra_by_path"] = dict(SPECTRA_BY_PATH)
     record20g[0]["launches_by_path"] = dict(DECIDE_BY_PATH)
+    record20h["launches_by_path"] = dict(LANES_BY_PATH)
     print(json.dumps({"kernels": [record, record19, record20, record20e, record20f,
-                                  *record20g]}), flush=True)
+                                  *record20g, record20h]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
@@ -3790,6 +3807,134 @@ def phase20g_decide(dev, card, cell):
     del yr, yi, args
     torch.cuda.empty_cache()
     return {"name": "decide", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/decide.cu",
+            "replaces": None, "launches": 1, "max_abs_err": None, "cell": name,
+            "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": bound_by,
+            "near_ties": near, "differ_near_ties": differ_near,
+            # the twin is the only PyTorch yardstick; no library call
+            "library_ms": None}
+
+
+# the SF12 gateway cell's configuration, traffic mix, channels and one pool
+# item's seed (phase 20 (h))
+LANES_CELL = ("gw-eu868-dr0", "gw-pool128-dr0", 128, 2 ** 33 + 47)
+
+
+def lanes_count(frames, sync_rows, pay_rows, n):
+    """(flops, bytes) of the lanes kernel's work: every row derotated (4
+    products and 2 sums a sample), a 5 N log2 N FFT and |.|² (3 flops a
+    bin) of each derotated row and of each raw payload row; the rows read
+    once, 8 bytes a sample, and what is written (a bin a row, 6 values a
+    payload row)."""
+    rows = sync_rows + pay_rows
+    ffts = rows + pay_rows
+    flops = frames * (rows * 6 * n + ffts * (5 * n * math.log2(n) + 3 * n))
+    nbytes = frames * (rows * n * 8 + rows * 4 + pay_rows * 6 * 4)
+    return flops, nbytes
+
+
+def phase20h_lanes(dev, card):
+    """The lanes kernel on one call of the SF12 gateway cell's lanes: the
+    receiver runs once on one pool item of the cell's traffic with a spy
+    on ``lane_spectra`` (one launch; none with the spectra), then the
+    kernel alone on the rows it was handed against its twin
+    (``lane_spectra_reference``): bins equal outside near-ties, the
+    near-ties and any bin that differs there counted, peaks, sums and the
+    clock drift's powers within a relative 1e-5; both times, the bound
+    and the share; the receiver call's peak memory with the kernel and
+    with the twin. Returns the kernel's record for the JSON line."""
+    from phybench.traffic import generator
+
+    name, mix, channels, seed = LANES_CELL
+    cfg = json.loads((REPO / "phybench" / "configs" / f"{name}.json").read_text())
+    traffic = dict(json.loads((REPO / "phybench" / "traffic" / f"{mix}.json").read_text()),
+                   channels=channels, pool=1)
+    item = generator.make_pool(cfg, traffic, seed, dev)[0]
+    p = LoraParams(sf=cfg["sf"], sync_word=cfg["sync_word"])
+
+    def receive(**kw):
+        return sync.receive_block_planar(
+            item.xr, item.xi, p, 2 * cfg["payload_bytes"], max_frames=cfg["max_frames"],
+            preamble_len=cfg["preamble_len"], min_power_db=cfg["min_power_db"], **kw)
+
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(a)
+        return lanes_k.lane_spectra(*a, **kw)
+
+    sync.lane_spectra = spy
+    try:
+        reset_launches()
+        receive()
+        torch.cuda.synchronize()
+        check(lanes_k.LAUNCHES == 1, f"phase 20 (h): {lanes_k.LAUNCHES} lanes launches in a "
+              "DR0 call")
+        receive(with_spectra=True)
+        torch.cuda.synchronize()
+        check(lanes_k.LAUNCHES == 1, "phase 20 (h): a lanes launch in a DR0 call with spectra")
+        read_launches("lanes_dr0")
+    finally:
+        sync.lane_spectra = lanes_k.lane_spectra
+    args = seen[0]
+    frames = math.prod(args[0].shape[:-2])
+    sync_rows, pay_rows = args[0].shape[-2], args[2].shape[-2]
+    got = lanes_k.lane_spectra(*args)
+    want = lanes_k.lane_spectra_reference(*args)
+    planes = (lanes_k.derotated_rows(*args[:7], p.n), (args[2], args[3]))
+    rows = near = differ = differ_near = 0
+    gap = 0.0
+    for (fr, fi), kb, tb in zip(planes, (got.raw, got.sro[0]), (want.raw, want.sro[0])):
+        top2 = fft.dft_mag2_planar(fr, fi, p.n).topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE_REL * top2[..., 0]
+        diff = kb != tb
+        rows += tie.numel()
+        near += int(tie.sum())
+        differ += int((diff & ~tie).sum())
+        differ_near += int((diff & tie).sum())
+        del top2, tie, diff
+    del planes, fr, fi
+    same = got.sro[0] == want.sro[0]
+    for a, b, ref, m in ((got.peak, want.peak, want.peak, None),
+                         (got.total, want.total, want.total, None),
+                         *((got.sro[i], want.sro[i], want.sro[2], same) for i in (1, 2, 3))):
+        rel = (a - b).abs() / ref
+        gap = max(gap, float((rel if m is None else rel[m]).max()))
+    torch.cuda.empty_cache()
+    check(differ == 0 and gap <= 1e-5,
+          f"phase 20 (h): {differ} bins differ outside near-ties, powers {gap:.3g} apart")
+    del got, want
+    t_kernel = cuda_ms(lambda: lanes_k.lane_spectra(*args), iters=10, calls=5)
+    t_twin = cuda_ms(lambda: lanes_k.lane_spectra_reference(*args), iters=3)
+    flops, nbytes = lanes_count(frames, sync_rows, pay_rows, p.n)
+    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound_by = "bytes" if nbytes / PEAK_HBM_BYTES >= flops / PEAK_F32_FLOPS else "flops"
+    del args, seen
+    peaks = {}
+    for route in ("kernel", "twin"):
+        if route == "twin":
+            sync.lane_spectra = lambda *a, **kw: lanes_k.lane_spectra_reference(
+                *a, with_sro=False, **kw)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            receive()
+            torch.cuda.synchronize()
+            peaks[route] = torch.cuda.max_memory_allocated(dev) - base
+        finally:
+            sync.lane_spectra = lanes_k.lane_spectra
+    print(f"phase 20 (h): {card}: lanes on {name}'s call ({frames} lanes x {sync_rows} + "
+          f"{pay_rows} rows of {p.n}): CUDA kernel {t_kernel:.3f} ms, twin {t_twin:.3f} ms; "
+          f"bins equal outside near-ties ({near} of {rows} rows within {NEAR_TIE_REL:g} of a "
+          f"tie, {differ_near} of them differ), powers within {gap:.3g}; bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({nbytes:.4g} B, {flops:.4g} flop), "
+          f"{bound_ms / t_kernel:.3f} of it; the receiver call's peak memory beyond its inputs "
+          f"{peaks['kernel'] / 1e9:.3f} GB with the kernel, {peaks['twin'] / 1e9:.3f} GB with "
+          f"the twin", flush=True)
+    del item
+    torch.cuda.empty_cache()
+    return {"name": "lanes", "route": "cuda", "source": "lora_phy_tpu_torch/csrc/lanes.cu",
             "replaces": None, "launches": 1, "max_abs_err": None, "cell": name,
             "ms": t_kernel, "plain_ms": t_twin, "bound_ms": bound_ms, "bound_by": bound_by,
             "near_ties": near, "differ_near_ties": differ_near,

@@ -33,7 +33,8 @@ from .utils.profiling import launch_range
 _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "fused_demod.cu", _PKG / "csrc" / "bf16_decide.cu",
            _PKG / "csrc" / "dechirp.cu", _PKG / "csrc" / "windows.cu",
-           _PKG / "csrc" / "scan.cu", _PKG / "csrc" / "decide.cu")
+           _PKG / "csrc" / "scan.cu", _PKG / "csrc" / "decide.cu",
+           _PKG / "csrc" / "lanes.cu")
 # headers the sources include (a change rebuilds the library too)
 HEADERS = (_PKG / "csrc" / "fft_rows.cuh", _PKG / "csrc" / "fft_block.cuh")
 BUILD_DIR = _PKG.parent / "build" / "lora_phy_tpu_torch"

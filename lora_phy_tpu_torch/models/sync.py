@@ -41,7 +41,9 @@ from ..ops.planar import (_decimation_phase, _preamble_phase_step,
                           dechirp_planar, dft_mag2_planar, dft_planar,
                           demodulate_spectrum_planar, detect_planar,
                           estimate_preamble_planar,
-                          estimate_preamble_robust_planar, estimate_sro_planar)
+                          estimate_preamble_robust_planar, estimate_sro_planar,
+                          sro_from_powers)
+from ..ops.lanes import lane_spectra
 from ..ops.scan import scan_peaks, scan_spectra
 from ..utils.params import _window_table
 from ..utils.profiling import stage_range
@@ -311,8 +313,13 @@ def _circ_wrap_const(params: LoraParams):
 def _snr_db(mag2_pay: torch.Tensor, n: int) -> torch.Tensor:
     """Mean payload peak over mean residual power per bin, dB (the
     detector convention, LoRaDetector.hpp:60-64)."""
-    peak = mag2_pay.amax(dim=-1)                       # [..., K, S]
-    noise = (torch.sum(mag2_pay, dim=-1) - peak) / float(n - 1)
+    return _snr_from_powers(mag2_pay.amax(dim=-1), torch.sum(mag2_pay, dim=-1), n)
+
+
+def _snr_from_powers(peak: torch.Tensor, total: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`_snr_db` from each payload spectrum's peak and power sum
+    ([..., K, S])."""
+    noise = (total - peak) / float(n - 1)
     return 10.0 * torch.log10(
         torch.mean(peak, dim=-1)
         / torch.clamp(torch.mean(noise, dim=-1), min=1e-30))
@@ -342,6 +349,12 @@ def _receive_block_circular(xr, xi, params: LoraParams,
     CUDA device, in the ``estimator`` stage: :func:`..ops.planar.detect_planar`
     copies ``N`` to the device from pageable host memory, which waits for
     the queue to drain (:func:`..utils.profiling.host_sync`).
+
+    The ``demod`` and ``sro`` stages' row spectra come from
+    :func:`..ops.lanes.lane_spectra`: on CUDA at N = 256..4096 (and
+    without ``with_spectra``) one launch of ``csrc/lanes.cu`` in ``demod``
+    serves both, and ``sro`` keeps the fractional-bin arithmetic; else its
+    plain twin in ``demod``, and ``sro`` its own DFT.
 
     While a profiler runs, each stage runs in a ``record_function`` range
     (:func:`stage_range`; nothing otherwise) named after the stages of
@@ -462,32 +475,16 @@ def _receive_block_circular(xr, xi, params: LoraParams,
             n, osr, phase_step=pps, bin_offset=b0)
 
     with stage_range("demod"):
-        # fractional derotation at the TRUE sample index (j - q) mod n
+        # fractional derotation at the TRUE sample index (j - q) mod n; on
+        # the kernel's route one launch serves this stage and the next
         rate = -float(np.float32(2.0 * math.pi)) * cfo_resid / float(n)
-
-        def rot_factor(qs):
-            qs = qs[..., None]
-            idx_true = (jj - qs + torch.where(jj < qs, n, 0)).to(torch.float32)
-            ph = rate[..., None] * idx_true
-            return torch.cos(ph), torch.sin(ph)            # [..., K, n]
-
-        def rot(a_r, a_i, c_, s_):
-            c_, s_ = c_[..., None, :], s_[..., None, :]
-            return a_r * c_ - a_i * s_, a_r * s_ + a_i * c_
-
-        ca, sa = rot_factor(q)
-        cb, sb_ = rot_factor(q_p)
-        sy_r, sy_i = rot(ps_r[..., preamble_len:, :],
-                         ps_i[..., preamble_len:, :], ca, sa)
-        pl_r, pl_i = rot(pd_r, pd_i, cb, sb_)
-        fr = torch.cat([sy_r, pl_r], dim=-2)
-        fi = torch.cat([sy_i, pl_i], dim=-2)
-        mag2 = dft_mag2_planar(fr, fi, n)                  # [..., K, 2+S, n]
+        lanes = lane_spectra(ps_r[..., preamble_len:, :], ps_i[..., preamble_len:, :],
+                             pd_r, pd_i, rate, q, q_p, params, with_spectra=with_spectra)
 
         # index correction: raw = s + c - q_section. At chirp slope > 1
         # (BW250/500) the payload grid's quarter-window offset dq rotates
         # every payload tone by dq*(scale-1) more bins; no-op at BW125.
-        raw = torch.argmax(mag2, dim=-1).to(torch.int32)
+        raw = lanes.raw
         dq_rot = int(round((dq // osr) * (params.scale - 1.0)))
         corr_s = torch.remainder(q - cfo_bins, n)[..., None]
         corr_p = torch.remainder(q_p - cfo_bins + dq_rot, n)[..., None]
@@ -497,20 +494,22 @@ def _receive_block_circular(xr, xi, params: LoraParams,
         syms = bins[..., 2:]
 
     with stage_range("sro"):
-        mag2_pay = mag2[..., 2:, :]
-        sro_ppm = estimate_sro_planar(
-            pd_r.reshape(*lead, max_frames, n_payload_symbols * step),
-            pd_i.reshape(*lead, max_frames, n_payload_symbols * step), params)
+        if lanes.sro is None:
+            sro_ppm = estimate_sro_planar(
+                pd_r.reshape(*lead, max_frames, n_payload_symbols * step),
+                pd_i.reshape(*lead, max_frames, n_payload_symbols * step), params)
+        else:
+            sro_ppm = sro_from_powers(*lanes.sro[1:], params)
         blk = BlockFrames(found, start, cfo_bins, syms, sync_word,
                           cfo_resid, torch.zeros_like(cfo_resid),
-                          _snr_db(mag2_pay, n), sro_ppm)
+                          _snr_from_powers(lanes.peak, lanes.total, n), sro_ppm)
     if not with_spectra:
         return blk
     # payload spectra in TRUE bin order: the power of true bin v sits at
     # rotated index (v - corr_p) mod n
     v = torch.arange(n, dtype=torch.int32, device=dev)
     idx = torch.remainder(v - corr_p, n)[..., None, :].to(torch.int64)
-    spectra = torch.gather(mag2_pay, -1, idx.expand(mag2_pay.shape))
+    spectra = torch.gather(lanes.spectra, -1, idx.expand(lanes.spectra.shape))
     return blk, spectra
 
 

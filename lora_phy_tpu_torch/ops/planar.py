@@ -383,11 +383,23 @@ def estimate_sro_planar(xr: torch.Tensor, xi: torch.Tensor,
     ``continuous_chirp`` TX or osr 1, ``osr-1`` under the reference fold.
     Fewer than two windows report zero drift."""
     n, osr = params.n, params.osr
-    phase = _decimation_phase(params)
     lead = xr.shape[:-1]
     s = xr.shape[-1] // (n * osr)
     if s < 2:
         return torch.zeros(lead, dtype=torch.float32, device=xr.device)
+    _, left, peak, right = sro_peak_powers(xr, xi, params)
+    return sro_from_powers(left, peak, right, params)
+
+
+def sro_peak_powers(xr: torch.Tensor, xi: torch.Tensor, params: LoraParams):
+    """The DFT side of :func:`estimate_sro_planar`: of each of the
+    ``[..., S*step]`` planes' S decimated windows, the first-max bin and
+    the powers at that bin minus one, the bin and the bin plus one
+    (circular): ``(index, left, peak, right)``, [..., S] each."""
+    n, osr = params.n, params.osr
+    phase = _decimation_phase(params)
+    lead = xr.shape[:-1]
+    s = xr.shape[-1] // (n * osr)
 
     def view(a):
         return a[..., : s * n * osr].reshape(*lead, s, n, osr)[..., phase]
@@ -395,11 +407,26 @@ def estimate_sro_planar(xr: torch.Tensor, xi: torch.Tensor,
     sr, si = dft_planar(view(xr), view(xi), n)
     mag2 = sr * sr + si * si                                  # [..., S, N]
     index = torch.argmax(mag2, dim=-1)
-    peak = torch.sqrt(mag2.amax(dim=-1))
+    peak = mag2.amax(dim=-1)
     left_ix = torch.where(index > 0, index - 1, n - 1)[..., None]
     right_ix = torch.where(index < n - 1, index + 1, 0)[..., None]
-    left = torch.sqrt(torch.gather(mag2, -1, left_ix)[..., 0])
-    right = torch.sqrt(torch.gather(mag2, -1, right_ix)[..., 0])
+    left = torch.gather(mag2, -1, left_ix)[..., 0]
+    right = torch.gather(mag2, -1, right_ix)[..., 0]
+    return index, left, peak, right
+
+
+def sro_from_powers(left: torch.Tensor, peak: torch.Tensor, right: torch.Tensor,
+                    params: LoraParams) -> torch.Tensor:
+    """The fractional-bin side of :func:`estimate_sro_planar`, from each
+    window's powers around its first max ([..., S], as
+    :func:`sro_peak_powers` gives them): ppm, [...]; zero under two
+    windows."""
+    if peak.shape[-1] < 2:
+        return torch.zeros(peak.shape[:-1], dtype=torch.float32, device=peak.device)
+    n = params.n
+    peak = torch.sqrt(peak)
+    left = torch.sqrt(left)
+    right = torch.sqrt(right)
     den_r, den_l = peak + right, peak + left
     one = torch.ones_like(den_r)
     fi = torch.where(
